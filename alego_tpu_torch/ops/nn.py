@@ -1,0 +1,144 @@
+"""Exact fused 1-NN / k-NN: the CUDA kernel wrappers (``csrc/nn.cu``) and
+their plain PyTorch versions.
+
+Port of ``alego_tpu.ops.pallas_nn`` (``nn1_pallas`` / ``knn_pallas``).  Both
+sides compute the Pallas function: direct f32 difference-squares with a
++1e30 penalty on invalid refs, 1e30 for invalid queries, d2 clamped to >= 0,
+idx clipped to [0, N-1], ties to the lowest ref index.  An invalid query
+reports index 0 on both sides (the Pallas kernel leaves it unspecified).
+
+``ops/knn.py`` dispatches on the device of the inputs: a CPU tensor runs
+the plain version, a CUDA tensor launches the kernel (or raises — there is
+no fallback).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels
+
+BIG = 1e30
+MAX_K = 8
+
+
+def active_lengths(qmask: torch.Tensor, rmask: torch.Tensor) -> torch.Tensor:
+    """[2] int32 on the device: 1 + index of the last True of each mask
+    (0 if none).  Work past these is dead; no host read."""
+    def one(m):
+        idx = torch.arange(1, m.shape[0] + 1, dtype=torch.int32, device=m.device)
+        return torch.where(m, idx, 0).max()
+    return torch.stack([one(qmask), one(rmask)]).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _tile_dists(query: torch.Tensor, ref: torch.Tensor, pen: torch.Tensor):
+    """[Q, n] squared distances, one rounded f32 operation at a time."""
+    d = None
+    for c in range(3):
+        diff = query[:, None, c] - ref[None, :, c]
+        sq = diff * diff
+        d = sq if d is None else d + sq
+    return d + pen[None, :]
+
+
+def knn_plain(query, qmask, ref, rmask, k: int, chunk: int = 4096):
+    """k best refs per query, ascending, the Pallas contract (see module).
+
+    Streams the refs in chunks; per chunk the k best come from repeated
+    min-and-mask (first index on ties), merged with the running best by a
+    stable sort that keeps earlier (lower-index) entries first on ties."""
+    Q, N = query.shape[0], ref.shape[0]
+    pen = torch.where(rmask, 0.0, BIG).to(query.dtype)
+    if N < k:   # Pallas pads the ref tile: the padding fills empty slots
+        ref = torch.cat([ref, ref.new_zeros((k - N, 3))])
+        pen = torch.cat([pen, pen.new_full((k - N,), BIG)])
+    best_d = query.new_empty((Q, 0))
+    best_i = torch.empty((Q, 0), dtype=torch.int64, device=query.device)
+    for c0 in range(0, ref.shape[0], chunk):
+        d = _tile_dists(query, ref[c0:c0 + chunk], pen[c0:c0 + chunk])
+        loc_d, loc_i = [], []
+        for _ in range(min(k, d.shape[1])):
+            a = torch.argmin(d, dim=1, keepdim=True)
+            loc_d.append(torch.gather(d, 1, a))
+            loc_i.append(a + c0)
+            d = d.scatter(1, a, float("inf"))
+        cat_d = torch.cat([best_d] + loc_d, 1)
+        cat_i = torch.cat([best_i] + loc_i, 1)
+        cat_d, order = torch.sort(cat_d, dim=1, stable=True)
+        best_d = cat_d[:, :k]
+        best_i = torch.gather(cat_i, 1, order[:, :k])
+    qm = qmask[:, None]
+    d = torch.where(qm, torch.clamp(best_d, min=0.0), BIG)
+    i = torch.where(qm, torch.clamp(best_i, 0, N - 1), 0).to(torch.int32)
+    return d, i
+
+
+def nn1_plain(query, qmask, ref, rmask, chunk: int = 4096):
+    d, i = knn_plain(query, qmask, ref, rmask, 1, chunk)
+    return d[:, 0], i[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _launcher():
+    fn = kernels.library("nn").alego_knn
+    if fn.argtypes is None:   # declare once: pointers must not be cut to int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, p, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_inputs(query, qmask, ref, rmask, k):
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be in 1..{MAX_K}, got {k}")
+    for name, t, dtype, shape in (("query", query, torch.float32, (None, 3)),
+                                  ("qmask", qmask, torch.bool, (None,)),
+                                  ("ref", ref, torch.float32, (None, 3)),
+                                  ("rmask", rmask, torch.bool, (None,))):
+        if t.device.type != "cuda" or t.device != query.device:
+            raise ValueError(f"{name} must lie on query's CUDA device, not {t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.dim() != len(shape) or (len(shape) == 2 and t.shape[1] != 3):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if qmask.shape[0] != query.shape[0] or rmask.shape[0] != ref.shape[0]:
+        raise ValueError("mask lengths must match their point sets")
+    if query.shape[0] == 0 or ref.shape[0] == 0:
+        raise ValueError("query and ref must be non-empty")
+
+
+def _launch(query, qmask, ref, rmask, k: int, name: str):
+    _check_inputs(query, qmask, ref, rmask, k)
+    Q, N = query.shape[0], ref.shape[0]
+    active = active_lengths(qmask, rmask)
+    d = torch.empty((Q, k), dtype=torch.float32, device=query.device)
+    i = torch.empty((Q, k), dtype=torch.int32, device=query.device)
+    stream = torch.cuda.current_stream(query.device).cuda_stream
+    status = _launcher()(query.data_ptr(), qmask.data_ptr(), ref.data_ptr(),
+                         rmask.data_ptr(), active.data_ptr(), Q, N, k,
+                         d.data_ptr(), i.data_ptr(), stream)
+    kernels.check(status, f"{name} kernel")
+    kernels.LAUNCHES[name] += 1
+    return d, i
+
+
+def knn_cuda(query, qmask, ref, rmask, k: int):
+    """k-NN kernel launch; returns (d2 [Q, k] f32, idx [Q, k] int32)."""
+    return _launch(query, qmask, ref, rmask, k, "knn")
+
+
+def nn1_cuda(query, qmask, ref, rmask):
+    """1-NN kernel launch; returns (d2 [Q] f32, idx [Q] int32)."""
+    d, i = _launch(query, qmask, ref, rmask, 1, "nn1")
+    return d[:, 0], i[:, 0]

@@ -1,0 +1,134 @@
+"""The whole frame step of the port against the JAX reference.
+
+* one step from a state carried across with ``state_from_reference``:
+  poses within 1e-4 m / 1e-5 rad, keyframe count, ``map_dirty`` and the
+  written keyframe row's valid masks equal;
+* a 6-frame trajectory from ``init_state`` on both sides, within 1e-3 m /
+  1e-4 rad: the recursive pipeline carries each frame's ulp-level
+  differences into the next frame's warm start and map (bench.py:194-199);
+* the port imports neither jax nor alego_tpu, and its entry points refuse
+  to fall back to the CPU silently.
+
+The reference's neighbour searches run its Pallas kernels in interpret mode
+(see test_torch_mapping).
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from alego_tpu.models import pipeline as jpipe
+from alego_tpu.utils import synthetic
+
+from alego_tpu_torch.models import pipeline as tpipe
+
+from test_torch_mapping import pallas_search
+from test_torch_odometry import assert_pose_close
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def sequence(cfg, world):
+    cfg = cfg.replace(loop_in_step=False)
+    poses = synthetic.loop_trajectory(6, radius=20.0, speed=1.0, closed=False)
+    pts, mask = synthetic.render_sequence(world, poses, cfg, noise=0.01)
+    return cfg, poses, pts, mask
+
+
+def _jax_run(cfg, pts, mask, n, state=None):
+    step = jax.jit(lambda st, p, m, t: jpipe.slam_step(st, p, m, t, cfg))
+    st = jpipe.init_state(cfg) if state is None else state
+    out = []
+    for k in range(n):
+        st, pose = step(st, jnp.asarray(pts[k]), jnp.asarray(mask[k]),
+                        jnp.float32(k * cfg.scan_period))
+        out.append(np.asarray(pose))
+    return st, np.stack(out)
+
+
+def test_step_from_carried_state(sequence, monkeypatch):
+    pallas_search(monkeypatch)
+    cfg, _, pts, mask = sequence
+    st_j, _ = _jax_run(cfg, pts, mask, 4)
+    st_t = tpipe.state_from_reference(jax.tree_util.tree_map(np.asarray, st_j), "cpu", cfg)
+    assert int(st_t.frame) == 4
+
+    step = jax.jit(lambda st, p, m, t: jpipe.slam_step(st, p, m, t, cfg))
+    st_j, pose_j = step(st_j, jnp.asarray(pts[4]), jnp.asarray(mask[4]), jnp.float32(0.8))
+    st_t, pose_t = tpipe.slam_step(st_t, torch.from_numpy(pts[4]), torch.from_numpy(mask[4]),
+                                   torch.tensor(0.8), cfg)
+    assert_pose_close(pose_t, pose_j)
+    assert_pose_close(st_t.T_odom2laser, st_j.T_odom2laser)
+    mj, mt = st_j.mapping, st_t.mapping
+    count = int(mj.graph.count)
+    assert int(mt.graph.count) == count and count >= 3
+    assert bool(mt.map_dirty) == bool(mj.map_dirty)
+    for name in ("kf_corner_valid", "kf_surf_valid", "kf_outlier_valid"):
+        np.testing.assert_array_equal(getattr(mt, name)[count - 1].numpy(),
+                                      np.asarray(getattr(mj, name))[count - 1], err_msg=name)
+    assert int(st_t.frame) == 5
+
+
+def test_six_frame_trajectory(sequence, monkeypatch):
+    pallas_search(monkeypatch)
+    cfg, gt, pts, mask = sequence
+    _, est_j = _jax_run(cfg, pts, mask, 6)
+    pipe = tpipe.SlamPipeline(cfg, device="cpu")
+    with pytest.warns(RuntimeWarning, match="loop closure"):
+        est_t = pipe.run(pts, mask)
+    assert est_t.shape == (6, 4, 4) and np.isfinite(est_t).all()
+    assert_pose_close(est_t, est_j, t_tol=1e-3, r_tol=1e-4)
+    assert np.abs(est_t[:, :3, 3] - gt[:, :3, 3]).max() < 0.5
+    m = pipe.export_map()
+    assert len(m["keyposes"]) == int(pipe.state.mapping.graph.count) >= 3
+    assert m["surf"].shape[1] == 3 and len(m["surf"]) > 100
+
+
+def test_state_from_reference_checks_layout(cfg):
+    cfg = cfg.replace(loop_in_step=False)
+    tree = jax.tree_util.tree_map(np.asarray, jpipe.init_state(cfg))
+    state = tpipe.state_from_reference(tree, "cpu", cfg)
+    assert state.mapping.kf_surf.shape == (cfg.max_keyframes, cfg.kf_surf_cap, 3)
+    bad = tree._replace(frame=np.zeros(3, np.int32))
+    with pytest.raises(ValueError, match="frame"):
+        tpipe.state_from_reference(bad, "cpu", cfg)
+    with pytest.raises(ValueError, match="float64"):
+        tpipe.state_from_reference(tree._replace(T_odom2laser=np.eye(4)), "cpu")
+
+
+def test_port_imports_no_reference():
+    code = (
+        "import sys\n"
+        "for m in [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'alego_tpu')]:\n"
+        "    del sys.modules[m]\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'alego_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import alego_tpu_torch.models.pipeline, alego_tpu_torch.utils.synthetic\n"
+        "import alego_tpu_torch.utils.metrics\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'alego_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+
+
+def test_no_silent_cpu(cfg, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = cfg.replace(loop_in_step=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpipe.SlamPipeline(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpipe.init_state(cfg)
+    with pytest.raises(NotImplementedError, match="loop_in_step"):
+        tpipe.SlamPipeline(cfg.replace(loop_in_step=True), device="cpu")
