@@ -1,5 +1,5 @@
-// Connected-component labelling of the range image, iterated to the exact
-// fixpoint inside ONE thread block.
+// Connected-component labelling of the range image by union-find across
+// the card, in three short kernels and no fixpoint rounds.
 //
 // Replaces: alego_tpu/ops/pallas_ccl.py, ccl_fixpoint_pallas / _ccl_kernel
 // (the whole CCL fixpoint as one VMEM-resident Pallas program).
@@ -9,174 +9,150 @@
 // and conn_up[r][c] (row r <-> r+1).  Pixels without edges keep their own
 // flat index, exactly as the reference's fixpoint.
 //
-// What bounds it on this card: neither bytes (~0.1 MB in, 0.26 MB out) nor
-// arithmetic (~20 rounds x 64k pixels of integer min).  It is a chain of
-// ~20 dependent rounds, each of which needs the whole image: latency and
-// synchronisation bound.  The TPU kernel kept the image in VMEM for the same
-// reason; an XLA-style loop of separate launches would pay a launch and a
-// device-memory round trip per round.
+// Union-find with min-root linking: a root is only ever hooked under a
+// smaller root (atomicMin on int32 parents), so every parent is <= its child
+// and the one root left in each component is its smallest flat index.  The
+// labels are therefore the component-min labelling of the reference whatever
+// order the threads run in.  find() reads parents through volatile loads,
+// since other threads lower them concurrently.
 //
-// Design: labels < R*H = 64000 < 2^16, so the whole image fits as uint16 in
-// 125 KiB of shared memory and the two edge masks fit as bits in 15.5 KB:
-// one block of 1024 threads holds the entire fixpoint on one SM, with a
-// shared "changed" flag ending the loop, and no host synchronisation.  Each
-// round: a warp per row runs a segmented min-scan along the row forward and
-// backward (32 columns per step, shuffles), starting from the value across
-// the column seam so runs that wrap at column H-1 -> 0 join; then a thread
-// per column sweeps the rings down and up.  Component-min labels do not
-// depend on the schedule (pallas_ccl.py:10-19), so this gives the same
-// labels as the Pallas kernel.  Only one SM works: the later redesign
-// (several blocks with distributed shared memory, or fewer rounds) is
-// queued in ROADMAP.md.
+// What bounds it on this card: neither bytes (~0.1 MB of edges in, 0.26 MB
+// of labels out) nor operations (a few per pixel).  What is left once the
+// fixpoint rounds are gone is launch and memory latency: three dependent
+// kernels, and the find chains that cross tiles (one hop per tile a
+// component spans, each an L2 read).  The design keeps every pass one
+// launch wide, with no loop over rounds and no host synchronisation:
+//   1. ccl_tiles: a block per tile of all R rows x kTileW columns links the
+//      tile's own edges in shared memory (horizontal runs by warp ballots,
+//      the rest by unions), flattens the tile and writes each pixel's
+//      global parent (its tile root, as a flat index) into labels;
+//   2. ccl_seams: a thread per (tile border, row) links the conn_right edges
+//      that cross tile borders, the circular one from column H-1 to 0
+//      included, in the int32 parents in device memory (L2-resident);
+//   3. ccl_flatten: a thread per pixel replaces its parent by its root.
+// The labels tensor is the parent array: the kernels allocate nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr unsigned kBig = 0xFFFFu;
+constexpr int kTileW = 64;       // columns per tile (a tile spans all rows)
+constexpr int kMaxThreads = 1024;
+constexpr int kSeamThreads = 256;
+constexpr int kFlatThreads = 256;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__device__ __forceinline__ bool edge(const uint32_t* bits, int c) {
-  return (bits[c >> 5] >> (c & 31)) & 1u;
+__device__ __forceinline__ int find_root(volatile int* parent, int i) {
+  int p = parent[i];
+  while (p != i) {
+    i = p;
+    p = parent[i];
+  }
+  return i;
 }
 
-// One pass of a segmented min-scan along a circular row.  Position i of the
-// pass visits column col(i); linked(i) says whether col(i) is joined to the
-// column visited before it.  Returns whether any label dropped.
-template <bool kForward>
-__device__ bool row_pass(unsigned short* row, const uint32_t* rb, int H,
-                         bool seam, int lane) {
-  bool any = false;
-  unsigned carry = seam ? row[kForward ? H - 1 : 0] : kBig;
-  for (int base = 0; base < H; base += 32) {
-    const int i = base + lane;
-    const int c = kForward ? i : H - 1 - i;
-    unsigned v = kBig;
-    bool head = true;
-    if (i < H) {
-      v = row[c];
-      if (kForward)
-        head = c == 0 ? !seam : !edge(rb, c - 1);
-      else
-        head = c == H - 1 ? !seam : !edge(rb, c);
-    }
-    const unsigned old = v;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const unsigned ov = __shfl_up_sync(kFull, v, off);
-      const int oh = __shfl_up_sync(kFull, (int)head, off);
-      if (lane >= off) {
-        if (!head) v = min(v, ov);
-        head = head || oh;
-      }
-    }
-    if (!head) v = min(v, carry);
-    carry = __shfl_sync(kFull, v, 31);
-    if (i < H && v < old) {
-      row[c] = (unsigned short)v;
-      any = true;
-    }
-  }
-  __syncwarp();
-  return any;
-}
-
-__global__ void __launch_bounds__(kThreads)
-ccl_kernel(const uint8_t* __restrict__ conn_right,
-           const uint8_t* __restrict__ conn_up, int R, int H, int max_rounds,
-           int32_t* __restrict__ labels_out, int32_t* __restrict__ rounds_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int changed;
-  const int words = (H + 31) >> 5;
-  uint32_t* right = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* up = right + R * words;
-  unsigned short* lab =
-      reinterpret_cast<unsigned short*>(up + (R - 1) * words);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-
-  // pack the edge masks into bits: one 32-bit word per warp ballot
-  for (int w = warp; w < R * words; w += nwarps) {
-    const int r = w / words, c = (w % words) * 32 + lane;
-    const unsigned b = __ballot_sync(kFull, c < H && conn_right[r * H + c]);
-    if (lane == 0) right[w] = b;
-  }
-  for (int w = warp; w < (R - 1) * words; w += nwarps) {
-    const int r = w / words, c = (w % words) * 32 + lane;
-    const unsigned b = __ballot_sync(kFull, c < H && conn_up[r * H + c]);
-    if (lane == 0) up[w] = b;
-  }
-  for (int i = tid; i < R * H; i += blockDim.x) lab[i] = (unsigned short)i;
-  __syncthreads();
-
-  int round = 0;
+// Join the sets of a and b: hook the larger root under the smaller.  When
+// the atomicMin finds b no longer a root (another thread hooked it to
+// `old` first), it may have moved b's link from `old` to a; joining a with
+// `old` next restores that link, so no connection is lost.
+__device__ void unite(int* parent, int a, int b) {
   for (;;) {
-    if (tid == 0) changed = 0;
-    __syncthreads();
-    // horizontal: a warp per ring, forward then backward segmented min-scan
-    for (int r = warp; r < R; r += nwarps) {
-      unsigned short* row = lab + r * H;
-      const uint32_t* rb = right + r * words;
-      const bool seam = edge(rb, H - 1);
-      bool any = row_pass<true>(row, rb, H, seam, lane);
-      any |= row_pass<false>(row, rb, H, seam, lane);
-      if (any) changed = 1;
+    a = find_root(parent, a);
+    b = find_root(parent, b);
+    if (a == b) return;
+    if (a > b) {
+      const int t = a;
+      a = b;
+      b = t;
     }
-    __syncthreads();
-    // vertical: a thread per column, complete down + up chain collapse
-    for (int c = tid; c < H; c += blockDim.x) {
-      bool any = false;
-      unsigned prev = lab[c];
-      for (int r = 1; r < R; ++r) {
-        unsigned v = lab[r * H + c];
-        if (edge(up + (r - 1) * words, c) && prev < v) {
-          v = prev;
-          lab[r * H + c] = (unsigned short)v;
-          any = true;
-        }
-        prev = v;
-      }
-      for (int r = R - 2; r >= 0; --r) {
-        unsigned v = lab[r * H + c];
-        if (edge(up + r * words, c) && prev < v) {
-          v = prev;
-          lab[r * H + c] = (unsigned short)v;
-          any = true;
-        }
-        prev = v;
-      }
-      if (any) changed = 1;
-    }
-    __syncthreads();
-    const int ch = changed;
-    ++round;
-    __syncthreads();  // every thread has read the flag before it is reset
-    if (!ch || round >= max_rounds) break;
+    const int old = atomicMin(parent + b, a);
+    if (old == b) return;
+    b = old;
   }
+}
 
-  for (int i = tid; i < R * H; i += blockDim.x) labels_out[i] = lab[i];
-  if (tid == 0) *rounds_out = round;
+__global__ void __launch_bounds__(kMaxThreads)
+ccl_tiles(const uint8_t* __restrict__ conn_right,
+          const uint8_t* __restrict__ conn_up, int R, int H,
+          int32_t* __restrict__ labels) {
+  extern __shared__ int sp[];  // [R, kTileW] tile-local parents
+  const int c0 = blockIdx.x * kTileW;
+  const int tw = min(kTileW, H - c0);
+  const int n = R * kTileW;
+
+  // Local index r * kTileW + lc orders pixels as their flat index r * H + c
+  // does, so the tile's min-root is the min flat index of its piece.  A
+  // warp holds 32 columns of one row: each pixel's first parent is the head
+  // of its horizontal run within the warp (a ballot of run heads), so runs
+  // need no unions; a run that enters the warp from the left starts at the
+  // warp's first pixel, which is joined to its left neighbour below.  n and
+  // blockDim.x are multiples of 32, so every lane runs every ballot.
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int lc = i % kTileW, lane = i & 31;
+    const bool joined =
+        lc > 0 && lc < tw && conn_right[(i / kTileW) * H + c0 + lc - 1];
+    const unsigned below = __ballot_sync(kFull, !joined) & (kFull >> (31 - lane));
+    sp[i] = i - lane + (below ? 31 - __clz(below) : 0);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int r = i / kTileW, lc = i - r * kTileW;
+    if (lc >= tw) continue;
+    const int g = r * H + c0 + lc;
+    if ((i & 31) == 0 && lc > 0 && conn_right[g - 1]) unite(sp, i - 1, i);
+    if (r + 1 < R && conn_up[g]) unite(sp, i, i + kTileW);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int r = i / kTileW, lc = i - r * kTileW;
+    if (lc >= tw) continue;
+    const int root = find_root(sp, i);
+    const int rr = root / kTileW;
+    labels[r * H + c0 + lc] = rr * H + c0 + (root - rr * kTileW);
+  }
+}
+
+__global__ void __launch_bounds__(kSeamThreads)
+ccl_seams(const uint8_t* __restrict__ conn_right, int R, int H, int tiles,
+          int32_t* labels) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= tiles * R) return;
+  const int tile = t / R, r = t - tile * R;
+  const int c = min((tile + 1) * kTileW, H) - 1;  // the tile's last column
+  if (conn_right[r * H + c])
+    unite(labels, r * H + c, r * H + (c + 1 == H ? 0 : c + 1));
+}
+
+__global__ void __launch_bounds__(kFlatThreads)
+ccl_flatten(int n, int32_t* labels) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // a concurrent reader sees the old parent or the root: both ancestors
+  if (i < n) labels[i] = find_root(labels, i);
 }
 
 }  // namespace
 
-// labels [R, H] int32 out; rounds [1] int32 out (rounds run; max_rounds
-// means the bound stopped it).  Returns cudaGetLastError() after the launch.
+// conn_right [R, H] and conn_up [R-1, H] bool (one byte each); labels
+// [R, H] int32 out, also the kernels' parent array.  Needs R * H < 2^31 and
+// R * kTileW * 4 bytes of shared memory.  Returns cudaGetLastError() after
+// the launches.
 extern "C" int alego_ccl(const uint8_t* conn_right, const uint8_t* conn_up,
-                         int R, int H, int max_rounds, int32_t* labels,
-                         int32_t* rounds, void* stream) {
-  // edge bits (2R-1 rows of 32-bit words) + uint16 labels
-  const size_t smem =
-      (2 * (size_t)R - 1) * ((H + 31) >> 5) * 4 + (size_t)R * H * 2;
-  cudaError_t err = cudaFuncSetAttribute(
-      ccl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ccl_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
-      conn_right, conn_up, R, H, max_rounds, labels, rounds);
+                         int R, int H, int32_t* labels, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int tiles = (H + kTileW - 1) / kTileW;
+  const int n = R * kTileW;
+  const int threads = min(kMaxThreads, n);  // n is a multiple of 32
+  const size_t smem = (size_t)n * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ccl_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  ccl_tiles<<<tiles, threads, smem, s>>>(conn_right, conn_up, R, H, labels);
+  ccl_seams<<<(tiles * R + kSeamThreads - 1) / kSeamThreads, kSeamThreads, 0,
+              s>>>(conn_right, R, H, tiles, labels);
+  ccl_flatten<<<(R * H + kFlatThreads - 1) / kFlatThreads, kFlatThreads, 0,
+                s>>>(R * H, labels);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,9 @@
-// Exact fused nearest-neighbour search (1-NN and k-NN, k <= 8) over masked,
+// Exact fused k-nearest-neighbour search (k <= 8) over masked,
 // front-compacted point clouds.
 //
-// Replaces: alego_tpu/ops/pallas_nn.py, nn1_pallas / _nn_kernel (1-NN, the
-// odometry association) and knn_pallas / _knn_kernel (k-best, the
-// scan-to-map 5-NN).  Both are one template here: 1-NN is k = 1.
+// Replaces: alego_tpu/ops/pallas_nn.py, knn_pallas / _knn_kernel (the
+// scan-to-map 5-NN).  The odometry 1-NN (nn1_pallas) has its own kernel
+// with the refs split across blocks, csrc/nn1.cu.
 //
 // Contract (pallas_nn.py:27-33,62-73,163-167,283-287):
 //   * d2 = ((dx*dx + dy*dy) + dz*dz) + penalty, each operation rounded as a
@@ -27,8 +27,9 @@
 // sorted by (distance, index) by insertion; refs stream through shared
 // memory in 1024-point tiles packed as float4 (x, y, z, penalty), so a warp
 // reads each ref as one broadcast.  Parallelism is over queries only (one
-// small block of 64 queries each); splitting the ref stream across blocks
-// is the later redesign queued in ROADMAP.md.
+// small block of 64 queries each), which leaves most SMs idle at the
+// mapping shapes: the ref split of csrc/nn1.cu with a k-sorted merge is
+// queued in ROADMAP.md.
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -21,7 +21,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("ccl", "nn")
+SOURCES = ("ccl", "nn", "nn1")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _libs: dict = {}

@@ -1,5 +1,5 @@
-"""Connected-component labelling fixpoint: the CUDA kernel wrapper
-(``csrc/ccl.cu``) and its plain PyTorch version.
+"""Connected-component labelling: the CUDA kernels' wrapper (``csrc/ccl.cu``,
+union-find with no rounds) and its plain PyTorch version.
 
 Port of ``alego_tpu.ops.pallas_ccl.ccl_fixpoint_pallas``.  Both compute
 component-min flat-index labels [R, H] int32 of the 4-connected range image:
@@ -21,8 +21,10 @@ import torch
 
 from .. import kernels
 
-# labels ride as uint16 in the kernel's shared memory, 0xFFFF = no label
-MAX_PIXELS = 0xFFFF
+# the kernels' limits: int32 flat indices, and one tile of all R rows x
+# TILE_W columns of int32 parents in a block's shared memory
+TILE_W = 64
+MAX_PIXELS = 2 ** 31 - 1
 SMEM_BYTES = 227 * 1024   # shared memory one Hopper block can use
 
 
@@ -76,16 +78,14 @@ def _launcher():
     fn = kernels.library("ccl").alego_ccl
     if fn.argtypes is None:   # declare once: pointers must not be cut to int
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, p, p, p]
+        fn.argtypes = [p, p, i, i, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def ccl_cuda(conn_right: torch.Tensor, conn_up: torch.Tensor,
-             rounds: torch.Tensor | None = None) -> torch.Tensor:
-    """Kernel launch; returns labels [R, H] int32.  ``rounds`` ([1] int32 on
-    the device), when given, receives the number of rounds the fixpoint
-    took."""
+def ccl_cuda(conn_right: torch.Tensor, conn_up: torch.Tensor) -> torch.Tensor:
+    """Kernel launch (three CUDA kernels, one count); returns labels [R, H]
+    int32."""
     R, H = conn_right.shape
     for name, t, shape in (("conn_right", conn_right, (R, H)),
                            ("conn_up", conn_up, (R - 1, H))):
@@ -96,17 +96,14 @@ def ccl_cuda(conn_right: torch.Tensor, conn_up: torch.Tensor,
                              f"{t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not (R * H < MAX_PIXELS and 1 <= R <= 64):
-        raise ValueError(f"image {R}x{H} exceeds the kernel's uint16 labels "
-                         "or row count")
-    if (2 * R - 1) * (-(-H // 32)) * 4 + R * H * 2 > SMEM_BYTES:
-        raise ValueError(f"image {R}x{H} does not fit one block's shared memory")
+    if not (1 <= R and 1 <= H and R * H <= MAX_PIXELS):
+        raise ValueError(f"image {R}x{H} exceeds the kernel's int32 labels")
+    if R * TILE_W * 4 > SMEM_BYTES:
+        raise ValueError(f"{R} rows do not fit one block's shared memory")
     labels = torch.empty((R, H), dtype=torch.int32, device=conn_right.device)
-    if rounds is None:
-        rounds = torch.empty(1, dtype=torch.int32, device=conn_right.device)
     stream = torch.cuda.current_stream(conn_right.device).cuda_stream
     status = _launcher()(conn_right.data_ptr(), conn_up.data_ptr(), R, H,
-                         R * H, labels.data_ptr(), rounds.data_ptr(), stream)
+                         labels.data_ptr(), stream)
     kernels.check(status, "ccl kernel")
     kernels.LAUNCHES["ccl"] += 1
     return labels

@@ -1,5 +1,5 @@
-"""Exact fused 1-NN / k-NN: the CUDA kernel wrappers (``csrc/nn.cu``) and
-their plain PyTorch versions.
+"""Exact fused 1-NN / k-NN: the CUDA kernel wrappers (``csrc/nn1.cu``,
+``csrc/nn.cu``) and their plain PyTorch versions.
 
 Port of ``alego_tpu.ops.pallas_nn`` (``nn1_pallas`` / ``knn_pallas``).  Both
 sides compute the Pallas function: direct f32 difference-squares with a
@@ -15,6 +15,7 @@ no fallback).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,6 +23,10 @@ from .. import kernels
 
 BIG = 1e30
 MAX_K = 8
+# the 1-NN grid: query tiles of NN1_QUERIES x ref chunks, about
+# NN1_BLOCKS_PER_SM blocks on each SM in all
+NN1_QUERIES = 64
+NN1_BLOCKS_PER_SM = 4
 
 
 def active_lengths(qmask: torch.Tensor, rmask: torch.Tensor) -> torch.Tensor:
@@ -97,6 +102,30 @@ def _launcher():
     return fn
 
 
+def _nn1_launcher():
+    fn = kernels.library("nn1").alego_nn1
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, p, p, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def nn1_chunk(Q: int, N: int, sms: int) -> int:
+    """Refs per block of the 1-NN grid (a multiple of 32), from the static
+    shapes: enough ref chunks that query tiles x chunks come to about
+    NN1_BLOCKS_PER_SM blocks on each of ``sms`` SMs."""
+    tiles = -(-Q // NN1_QUERIES)
+    chunks = -(-NN1_BLOCKS_PER_SM * sms // tiles)
+    per = -(-N // chunks)
+    return max(32, -(-per // 32) * 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _check_inputs(query, qmask, ref, rmask, k):
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in 1..{MAX_K}, got {k}")
@@ -118,7 +147,8 @@ def _check_inputs(query, qmask, ref, rmask, k):
         raise ValueError("query and ref must be non-empty")
 
 
-def _launch(query, qmask, ref, rmask, k: int, name: str):
+def knn_cuda(query, qmask, ref, rmask, k: int):
+    """k-NN kernel launch; returns (d2 [Q, k] f32, idx [Q, k] int32)."""
     _check_inputs(query, qmask, ref, rmask, k)
     Q, N = query.shape[0], ref.shape[0]
     active = active_lengths(qmask, rmask)
@@ -128,17 +158,24 @@ def _launch(query, qmask, ref, rmask, k: int, name: str):
     status = _launcher()(query.data_ptr(), qmask.data_ptr(), ref.data_ptr(),
                          rmask.data_ptr(), active.data_ptr(), Q, N, k,
                          d.data_ptr(), i.data_ptr(), stream)
-    kernels.check(status, f"{name} kernel")
-    kernels.LAUNCHES[name] += 1
+    kernels.check(status, "knn kernel")
+    kernels.LAUNCHES["knn"] += 1
     return d, i
 
 
-def knn_cuda(query, qmask, ref, rmask, k: int):
-    """k-NN kernel launch; returns (d2 [Q, k] f32, idx [Q, k] int32)."""
-    return _launch(query, qmask, ref, rmask, k, "knn")
-
-
 def nn1_cuda(query, qmask, ref, rmask):
-    """1-NN kernel launch; returns (d2 [Q] f32, idx [Q] int32)."""
-    d, i = _launch(query, qmask, ref, rmask, 1, "nn1")
-    return d[:, 0], i[:, 0]
+    """1-NN kernel launch; returns (d2 [Q] f32, idx [Q] int32).  No PyTorch
+    op runs on the device besides the allocations."""
+    _check_inputs(query, qmask, ref, rmask, 1)
+    Q, N = query.shape[0], ref.shape[0]
+    chunk = nn1_chunk(Q, N, _sm_count(query.device))
+    part = torch.empty((-(-N // chunk), Q), dtype=torch.int64, device=query.device)
+    d = torch.empty(Q, dtype=torch.float32, device=query.device)
+    i = torch.empty(Q, dtype=torch.int32, device=query.device)
+    stream = torch.cuda.current_stream(query.device).cuda_stream
+    status = _nn1_launcher()(query.data_ptr(), qmask.data_ptr(), ref.data_ptr(),
+                             rmask.data_ptr(), Q, N, chunk, part.data_ptr(),
+                             d.data_ptr(), i.data_ptr(), stream)
+    kernels.check(status, "nn1 kernel")
+    kernels.LAUNCHES["nn1"] += 1
+    return d, i

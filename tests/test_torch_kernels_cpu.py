@@ -124,6 +124,41 @@ def test_plain_nn1_matches_pallas(case):
     _check_nn(d, i, d_ref, i_ref, q, qm, r, rm)
 
 
+@pytest.mark.parametrize("case", ["holes", "front", "empty", "few", "ties"])
+def test_nn1_penalty_equals_skipping_invalid_refs(case):
+    """The equivalence the 1-NN kernel rests on: the +1e30 penalty on invalid
+    refs gives what a search over the valid refs alone gives, with indices
+    mapped back, and (1e30, 0) where there is no valid ref or query."""
+    q, qm, r, rm = _nn_case("holes" if case == "ties" else case)
+    if case == "ties":   # equal-distance copies, the first ones partly masked
+        r[750:] = r[:750]
+    q_t, qm_t, r_t = (torch.from_numpy(a) for a in (q, qm, r))
+    d, i = tnn.nn1_plain(q_t, qm_t, r_t, torch.from_numpy(rm))
+    keep = np.nonzero(rm)[0]
+    if keep.size:
+        d_v, i_v = tnn.nn1_plain(q_t, qm_t, r_t[keep], torch.ones(keep.size, dtype=torch.bool))
+        i_v = torch.where(qm_t, torch.from_numpy(keep)[i_v.long()].to(torch.int32), 0)
+    else:
+        d_v = torch.full((q.shape[0],), 1e30)
+        i_v = torch.zeros(q.shape[0], dtype=torch.int32)
+    assert torch.equal(d, d_v) and torch.equal(i, i_v)
+    assert bool((d[~qm_t] == 1e30).all()) and not i[~qm_t].any()
+
+
+@pytest.mark.parametrize("Q, N", [(512, 8192), (256, 2048), (1, 1), (77, 8191),
+                                  (3072, 16384)])
+def test_nn1_grid_fills_the_card(Q, N):
+    """The 1-NN grid from the static shapes: whole chunks of 32 refs that
+    cover N, within the grid's y limit, and at least two blocks per SM of
+    an H100 (132 SMs) wherever the refs allow."""
+    sms = 132
+    chunk = tnn.nn1_chunk(Q, N, sms)
+    chunks = -(-N // chunk)
+    assert chunk % 32 == 0 and chunks * chunk >= N and chunks <= 65535
+    blocks = -(-Q // tnn.NN1_QUERIES) * chunks
+    assert blocks >= 2 * sms or chunk == 32
+
+
 @pytest.mark.parametrize("k", [1, 5, 8])
 @pytest.mark.parametrize("case", ["holes", "front", "empty", "few"])
 def test_plain_knn_matches_pallas(case, k):
@@ -147,6 +182,8 @@ def test_wrappers_dispatch_plain_on_cpu():
     assert torch.equal(d, d2[:, 0]) and torch.equal(i, i2[:, 0])
     with pytest.raises(ValueError):
         tnn.knn_cuda(q, qm, r, rm, 5)      # a CPU tensor never reaches the kernel
+    with pytest.raises(ValueError):
+        tnn.nn1_cuda(q, qm, r, rm)
     with pytest.raises(ValueError):
         tccl.ccl_cuda(torch.zeros(16, 64, dtype=torch.bool),
                       torch.zeros(15, 64, dtype=torch.bool))

@@ -45,20 +45,55 @@ def _edges(image, dev):
     return _neighbor_connectivity(img.ranges, img.valid & ~img.ground, cfg)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("image", ["seam", "rendered", "random"])
-def test_ccl_kernel_matches_plain(cuda, image):
-    if image == "random":   # a maze: many rounds, seam-crossing runs
+def _image(image, dev):
+    """Edge masks (conn_right [R, H], conn_up [R-1, H]) of one test image."""
+    R, H = 16, 4000
+    cr = torch.zeros((R, H), dtype=torch.bool)
+    cu = torch.zeros((R - 1, H), dtype=torch.bool)
+    if image == "random":        # a maze: many rounds, seam-crossing runs
         g = torch.Generator().manual_seed(0)
-        cr = (torch.rand((16, 4000), generator=g) < 0.7).to(cuda)
-        cu = (torch.rand((15, 4000), generator=g) < 0.5).to(cuda)
+        cr = torch.rand((R, H), generator=g) < 0.7
+        cu = torch.rand((R - 1, H), generator=g) < 0.5
+    elif image == "serpentine":  # one snake up and down every column
+        H = 512
+        cr = torch.zeros((R, H), dtype=torch.bool)
+        cu = torch.ones((R - 1, H), dtype=torch.bool)
+        cr[0, 0:H - 1:2] = True
+        cr[R - 1, 1:H - 1:2] = True
+    elif image == "all":         # one component, labelled 0
+        cr[:], cu[:] = True, True
+    elif image == "none":        # every pixel its own component
+        pass
+    elif image == "seam_only":   # runs joined only across column H-1 -> 0
+        cr[::2, H - 1] = True
+        cr[1, H - 6:] = True
+        cr[1, :5] = True
+        cu[3, H - 1] = True
+    elif image == "tile_borders":  # components straddling the 64-column tiles
+        for c in range(60, H - 64, 192):
+            cr[2:12, c:c + 70] = True
+            cu[2:11, c + 3] = True
+        cr[:, 3900:] = True
+        cr[:, :20] = True
+        cu[:, 3990] = True
     else:
-        cr, cu = (t.contiguous() for t in _edges(image, cuda))
-    rounds = torch.zeros(1, dtype=torch.int32, device=cuda)
-    got = ccl.ccl_cuda(cr, cu, rounds)
+        return tuple(t.contiguous() for t in _edges(image, dev))
+    return cr.to(dev), cu.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("image", ["seam", "rendered", "random", "serpentine",
+                                   "all", "none", "seam_only", "tile_borders"])
+def test_ccl_kernel_matches_plain(cuda, image):
+    cr, cu = _image(image, cuda)
+    got = ccl.ccl_cuda(cr, cu)
     torch.cuda.synchronize()
-    assert 0 < int(rounds) < cr.numel()
     assert torch.equal(got, ccl.ccl_plain(cr, cu))
+    n = cr.numel()
+    if image in ("serpentine", "all"):
+        assert not got.any()
+    elif image == "none":
+        assert torch.equal(got.flatten().cpu(), torch.arange(n, dtype=torch.int32))
 
 
 def _nn_case(case, Q=300, N=1500):
@@ -85,3 +120,63 @@ def test_nn_kernels_match_plain(cuda, case, k):
         d_p, i_p = nn.knn_plain(q, qm, r, rm, k)
     torch.cuda.synchronize()
     assert torch.equal(d, d_p) and torch.equal(i, i_p)
+
+
+def _nn1_case(case):
+    """1-NN inputs that probe the ref split: (query, qmask, ref, rmask)."""
+    rng = np.random.default_rng(11)
+    if case in ("surf", "corner"):   # the odometry shapes, front-compacted
+        Q, N, q_live, r_live = {"surf": (512, 8192, 234, 7691),
+                                "corner": (256, 2048, 102, 239)}[case]
+        q = rng.uniform(-40, 40, (Q, 3)).astype(np.float32)
+        r = rng.uniform(-40, 40, (N, 3)).astype(np.float32)
+        qm, rm = np.arange(Q) < q_live, np.arange(N) < r_live
+        rm[rng.integers(0, r_live, r_live // 10)] = False
+        return q, qm, r, rm
+    if case == "duplicates":         # eight equal copies, one per 1024 refs
+        base = rng.uniform(-20, 20, (1024, 3)).astype(np.float32)
+        r = np.tile(base, (8, 1))
+        q = base[rng.integers(0, 1024, 512)] + rng.normal(0, 0.5, (512, 3)).astype(np.float32)
+        rm = rng.random(8192) < 0.5      # a masked first copy passes the tie on
+        return q, rng.random(512) < 0.9, r, rm
+    if case == "ragged":             # N not a multiple of any chunk
+        q = rng.uniform(-50, 50, (77, 3)).astype(np.float32)
+        r = rng.uniform(-50, 50, (8191, 3)).astype(np.float32)
+        return q, np.ones(77, bool), r, rng.random(8191) < 0.8
+    if case == "single":             # Q = 1, N = 1
+        return (np.array([[1, 2, 3]], np.float32), np.ones(1, bool),
+                np.array([[3, 2, 1]], np.float32), np.ones(1, bool))
+    # "no_query": every query invalid
+    q = rng.uniform(-50, 50, (300, 3)).astype(np.float32)
+    r = rng.uniform(-50, 50, (1500, 3)).astype(np.float32)
+    return q, np.zeros(300, bool), r, np.ones(1500, bool)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["surf", "corner", "duplicates", "ragged",
+                                  "single", "no_query"])
+def test_nn1_kernel_split_matches_plain(cuda, case):
+    q, qm, r, rm = (torch.from_numpy(a).to(cuda) for a in _nn1_case(case))
+    d, i = nn.nn1_cuda(q, qm, r, rm)
+    d_p, i_p = nn.nn1_plain(q, qm, r, rm)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d_p) and torch.equal(i, i_p)
+    if case == "duplicates":   # every tie went to the first valid copy
+        assert bool((i[qm] < 1024).any()) and bool((i[qm] >= 1024).any())
+    if case == "no_query":
+        assert bool((d == 1e30).all()) and not i.any()
+
+
+@pytest.mark.gpu
+def test_nn1_runs_only_its_kernels(cuda):
+    """No PyTorch reduction runs on the device: only the two 1-NN kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    q, qm, r, rm = (torch.from_numpy(a).to(cuda) for a in _nn1_case("surf"))
+    nn.nn1_cuda(q, qm, r, rm)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        nn.nn1_cuda(q, qm, r, rm)
+        torch.cuda.synchronize()
+    names = {ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA}
+    assert names and all("nn1_" in n for n in names), names

@@ -11,7 +11,8 @@ synchronise at the end), then the same frames under ``torch.profiler``.
 Prints one JSON object: ms/frame, device busy time per frame (the sum of
 the CUDA kernel and copy times the profiler records), the device's idle
 share against the unprofiled frame time, device operations and host
-synchronisations per frame, and the kernels with the most device time.
+synchronisations per frame, the kernels with the most device time, and the
+device time of each of the port's own CUDA kernels (``csrc/*.cu``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # runtime calls that block the host until the device has caught up
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy")
+# the port's own kernels, by the name each has in csrc/*.cu
+PORT_KERNELS = ("ccl_tiles", "ccl_seams", "ccl_flatten", "nn1_chunks",
+                "nn1_reduce", "knn_kernel")
 
 
 def main():
@@ -78,6 +82,12 @@ def main():
             copies += 1
 
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
+    port = {k: [0, 0.0] for k in PORT_KERNELS}
+    for name, (c, us) in kernels.items():
+        for k in PORT_KERNELS:
+            if k in name:
+                port[k][0] += c
+                port[k][1] += us
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -92,6 +102,8 @@ def main():
         "async_copies_per_frame": copies / n,
         "top_kernels": [{"name": k[:80], "calls_per_frame": c / n,
                          "ms_per_frame": us / n / 1e3} for k, (c, us) in top],
+        "port_kernels": {k: {"calls_per_frame": c / n, "ms_per_frame": us / n / 1e3}
+                         for k, (c, us) in port.items()},
     }
     print(json.dumps(summary, indent=1))
     return 0 if busy_us else 1
