@@ -11,11 +11,12 @@
 //   * d2 is clamped to >= 0 and idx to [0, N-1];
 //   * an invalid query, or one with no valid ref, reports (1e30, 0).
 // The reference adds a +1e30 penalty to invalid refs; this kernel skips
-// them instead.  That gives the same answer wherever |coordinates| < 1e11:
-// a valid ref's d2 is then below 1e30, an invalid ref's d2 + 1e30 rounds to
-// exactly 1e30, so an invalid ref never beats a valid one, and when no ref
-// is valid all tie at 1e30 and the lowest index, 0, wins.  So the kernel
-// needs no active lengths: no reduction runs before it.
+// them instead.  That gives the same answer wherever |coordinates| < 5e10:
+// a valid ref's d2 is then below 3e22, far below 1e30, and an invalid ref's
+// d2 + 1e30 rounds to exactly 1e30 (one f32 ulp there is 2^76 ~ 7.6e22, so
+// that needs d2 below ~3.8e22), so an invalid ref never beats a valid one,
+// and when no ref is valid all tie at 1e30 and the lowest index, 0, wins.
+// So the kernel needs no active lengths: no reduction runs before it.
 //
 // What bounds it on this card: at the odometry shapes (<= 512 queries, a
 // few hundred live, against <= 8192 refs) neither operations (~16 M) nor

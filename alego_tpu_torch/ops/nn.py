@@ -23,19 +23,12 @@ from .. import kernels
 
 BIG = 1e30
 MAX_K = 8
-# the 1-NN grid: query tiles of NN1_QUERIES x ref chunks, about
-# NN1_BLOCKS_PER_SM blocks on each SM in all
+# the 1-NN and k-NN grids: query tiles of NN1_QUERIES / KNN_QUERIES x ref
+# chunks, about *_BLOCKS_PER_SM blocks on each SM in all
 NN1_QUERIES = 64
 NN1_BLOCKS_PER_SM = 4
-
-
-def active_lengths(qmask: torch.Tensor, rmask: torch.Tensor) -> torch.Tensor:
-    """[2] int32 on the device: 1 + index of the last True of each mask
-    (0 if none).  Work past these is dead; no host read."""
-    def one(m):
-        idx = torch.arange(1, m.shape[0] + 1, dtype=torch.int32, device=m.device)
-        return torch.where(m, idx, 0).max()
-    return torch.stack([one(qmask), one(rmask)]).to(torch.int32)
+KNN_QUERIES = 64
+KNN_BLOCKS_PER_SM = 16
 
 
 # ---------------------------------------------------------------------------
@@ -97,7 +90,7 @@ def _launcher():
     fn = kernels.library("nn").alego_knn
     if fn.argtypes is None:   # declare once: pointers must not be cut to int
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, p, p, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -119,6 +112,18 @@ def nn1_chunk(Q: int, N: int, sms: int) -> int:
     chunks = -(-NN1_BLOCKS_PER_SM * sms // tiles)
     per = -(-N // chunks)
     return max(32, -(-per // 32) * 32)
+
+
+def knn_chunk(Q: int, N: int, k: int, sms: int) -> int:
+    """Refs per block of the k-NN grid (a multiple of 32), from the static
+    shapes: enough ref chunks that query tiles x chunks come to about
+    KNN_BLOCKS_PER_SM blocks on each of ``sms`` SMs, and at least 8 refs a
+    chunk for each of the k keys per query that a chunk writes for the
+    merge."""
+    tiles = -(-Q // KNN_QUERIES)
+    chunks = -(-KNN_BLOCKS_PER_SM * sms // tiles)
+    per = max(-(-N // chunks), 8 * k)
+    return -(-per // 32) * 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -148,15 +153,17 @@ def _check_inputs(query, qmask, ref, rmask, k):
 
 
 def knn_cuda(query, qmask, ref, rmask, k: int):
-    """k-NN kernel launch; returns (d2 [Q, k] f32, idx [Q, k] int32)."""
+    """k-NN kernel launch; returns (d2 [Q, k] f32, idx [Q, k] int32).  No
+    PyTorch op runs on the device besides the allocations."""
     _check_inputs(query, qmask, ref, rmask, k)
     Q, N = query.shape[0], ref.shape[0]
-    active = active_lengths(qmask, rmask)
+    chunk = knn_chunk(Q, N, k, _sm_count(query.device))
+    part = torch.empty((-(-N // chunk), k, Q), dtype=torch.int64, device=query.device)
     d = torch.empty((Q, k), dtype=torch.float32, device=query.device)
     i = torch.empty((Q, k), dtype=torch.int32, device=query.device)
     stream = torch.cuda.current_stream(query.device).cuda_stream
     status = _launcher()(query.data_ptr(), qmask.data_ptr(), ref.data_ptr(),
-                         rmask.data_ptr(), active.data_ptr(), Q, N, k,
+                         rmask.data_ptr(), Q, N, k, chunk, part.data_ptr(),
                          d.data_ptr(), i.data_ptr(), stream)
     kernels.check(status, "knn kernel")
     kernels.LAUNCHES["knn"] += 1

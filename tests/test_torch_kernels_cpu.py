@@ -173,6 +173,64 @@ def test_plain_knn_matches_pallas(case, k):
     assert (np.asarray(d)[qm][:, n_valid:] == 1e30).all()
 
 
+@pytest.mark.parametrize("Q, N", [(512, 8192), (256, 2048), (1, 1), (77, 8191),
+                                  (3072, 16384), (1024, 8192)])
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_knn_grid_fills_the_card(Q, N, k):
+    """The k-NN grid from the static shapes: whole chunks of 32 refs, at
+    least 8 per key a chunk writes, that cover N within the grid's y limit,
+    and at least two blocks per SM of an H100 (132 SMs) wherever the refs
+    allow."""
+    sms = 132
+    chunk = tnn.knn_chunk(Q, N, k, sms)
+    chunks = -(-N // chunk)
+    smallest = -(-8 * k // 32) * 32
+    assert chunk % 32 == 0 and chunk >= smallest
+    assert chunks * chunk >= N and chunks <= 65535
+    blocks = -(-Q // tnn.KNN_QUERIES) * chunks
+    assert blocks >= 2 * sms or chunk == smallest
+
+
+def _knn_skipping_invalid_refs(q, qm, r, rm, k):
+    """The k-NN kernel's rule: the k-NN over the valid refs alone, indices
+    mapped back, then the fill slots (the lowest indices in [0, max(N, k))
+    that are not valid refs, at 1e30, clipped to N - 1); (1e30, 0) for an
+    invalid query."""
+    Q, N = q.shape[0], r.shape[0]
+    keep = np.nonzero(rm)[0]
+    n_v = min(k, keep.size)
+    d = np.full((Q, k), 1e30, np.float32)
+    i = np.zeros((Q, k), np.int32)
+    if n_v:
+        d_v, i_v = tnn.knn_plain(torch.from_numpy(q), torch.from_numpy(qm),
+                                 torch.from_numpy(r[keep]),
+                                 torch.ones(keep.size, dtype=torch.bool), n_v)
+        d[:, :n_v] = d_v.numpy()
+        i[:, :n_v] = keep[i_v.numpy()]
+    fill = [j for j in range(max(N, k)) if j >= N or not rm[j]][:k - n_v]
+    i[:, n_v:] = np.minimum(fill, N - 1)
+    d[~qm], i[~qm] = 1e30, 0
+    return d, i
+
+
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("case", ["holes", "front", "empty", "few", "short"])
+def test_knn_penalty_equals_skipping_invalid_refs(case, k):
+    """The equivalence the k-NN kernel rests on: the +1e30 penalty on invalid
+    refs gives the valid refs in (d2, idx) order, then the fill slots."""
+    if case == "short":   # N < k: the reference pads the refs to k
+        q, qm, r, rm = _nn_case("holes")
+        r, rm = r[:3], np.array([True, False, True])
+    else:
+        q, qm, r, rm = _nn_case(case)
+    d, i = tnn.knn_plain(*(torch.from_numpy(a) for a in (q, qm, r, rm)), k)
+    d_v, i_v = _knn_skipping_invalid_refs(q, qm, r, rm, k)
+    np.testing.assert_array_equal(d.numpy(), d_v)
+    np.testing.assert_array_equal(i.numpy(), i_v)
+    if case == "few" and k > 2:   # valid refs 3 and 700: fill 0, 1, 2, 4, ...
+        assert (i_v[qm][:, 2:] == [0, 1, 2, 4, 5, 6][:k - 2]).all()
+
+
 def test_wrappers_dispatch_plain_on_cpu():
     q, qm, r, rm = (torch.from_numpy(a) for a in _nn_case("holes", 64, 200))
     d, i = tknn.knn_best(q, qm, r, rm, 5)

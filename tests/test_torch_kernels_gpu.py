@@ -180,3 +180,73 @@ def test_nn1_runs_only_its_kernels(cuda):
     names = {ev.name for ev in prof.events()
              if ev.device_type == torch.autograd.DeviceType.CUDA}
     assert names and all("nn1_" in n for n in names), names
+
+
+def _knn_case(case):
+    """k-NN inputs that probe the ref split, the merge and the fill slots:
+    (query, qmask, ref, rmask)."""
+    rng = np.random.default_rng(13)
+    if case in ("surf", "corner"):   # the mapping shapes, front-compacted
+        Q, N, q_live, r_live = {"surf": (3072, 16384, 2243, 11992),
+                                "corner": (1024, 8192, 245, 1230)}[case]
+        q = rng.uniform(-40, 40, (Q, 3)).astype(np.float32)
+        r = rng.uniform(-40, 40, (N, 3)).astype(np.float32)
+        qm, rm = np.arange(Q) < q_live, np.arange(N) < r_live
+        rm[rng.integers(0, r_live, r_live // 10)] = False
+        return q, qm, r, rm
+    if case == "duplicates":         # eight equal copies, one per 1024 refs
+        base = rng.uniform(-20, 20, (1024, 3)).astype(np.float32)
+        r = np.tile(base, (8, 1))
+        q = base[rng.integers(0, 1024, 512)] + rng.normal(0, 0.5, (512, 3)).astype(np.float32)
+        return q, rng.random(512) < 0.9, r, rng.random(8192) < 0.5
+    q = rng.uniform(-50, 50, (300, 3)).astype(np.float32)
+    r = rng.uniform(-50, 50, (1500, 3)).astype(np.float32)
+    qm, rm = rng.random(300) < 0.9, np.ones(1500, bool)
+    if case == "few":                # fewer valid refs than k, with holes:
+        rm = np.isin(np.arange(1500), [0, 2, 5, 900])   # fill 1, 3, 4, ...
+    elif case == "short":            # N < k: the reference pads the refs
+        r, rm = r[:3], np.array([True, False, True])
+    elif case == "empty":            # no valid ref
+        rm = np.zeros(1500, bool)
+    elif case == "no_query":         # no valid query
+        qm = np.zeros(300, bool)
+    elif case == "ragged":           # N not a multiple of any chunk
+        r = rng.uniform(-50, 50, (8191, 3)).astype(np.float32)
+        rm = rng.random(8191) < 0.8
+    return q, qm, r, rm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("case", ["surf", "corner", "duplicates", "few", "short",
+                                  "empty", "no_query", "ragged"])
+def test_knn_kernel_split_matches_plain(cuda, case, k):
+    q, qm, r, rm = (torch.from_numpy(a).to(cuda) for a in _knn_case(case))
+    d, i = nn.knn_cuda(q, qm, r, rm, k)
+    d_p, i_p = nn.knn_plain(q, qm, r, rm, k)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d_p) and torch.equal(i, i_p)
+    if case == "duplicates":   # ties went to the first valid copies
+        assert bool((i[qm] < 1024).any()) and bool((i[qm] >= 1024).any())
+    if case == "few" and k == 8:   # the four valid refs, then the fill
+        got = i[qm].cpu()
+        assert bool((got[:, :4].sort(1).values == torch.tensor([0, 2, 5, 900])).all())
+        assert bool((got[:, 4:] == torch.tensor([1, 3, 4, 6])).all())
+        assert bool((d[qm][:, 4:] == 1e30).all())
+    if case == "no_query":
+        assert bool((d == 1e30).all()) and not i.any()
+
+
+@pytest.mark.gpu
+def test_knn_runs_only_its_kernels(cuda):
+    """No PyTorch reduction runs on the device: only the two k-NN kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    q, qm, r, rm = (torch.from_numpy(a).to(cuda) for a in _knn_case("surf"))
+    nn.knn_cuda(q, qm, r, rm, 5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        nn.knn_cuda(q, qm, r, rm, 5)
+        torch.cuda.synchronize()
+    names = {ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA}
+    assert names and all("knn_" in n for n in names), names

@@ -31,7 +31,7 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy")
 # the port's own kernels, by the name each has in csrc/*.cu
 PORT_KERNELS = ("ccl_tiles", "ccl_seams", "ccl_flatten", "nn1_chunks",
-                "nn1_reduce", "knn_kernel")
+                "nn1_reduce", "knn_chunks", "knn_merge")
 
 
 def main():
