@@ -28,3 +28,18 @@ def const(value, like: torch.Tensor) -> torch.Tensor:
     keeps the IEEE quotient the reference computes before every ``floor``
     that bins points (rings, columns, voxels)."""
     return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def at(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``a[i]`` for a 0-dim index tensor on ``a``'s device, without reading
+    the index on the host (indexing with a tensor scalar may)."""
+    return a.index_select(0, i.long().reshape(1))[0]
+
+
+def vector(values, dtype, device) -> torch.Tensor:
+    """A 1-D tensor of Python numbers on ``device``, written by fills: a
+    copy from the host would wait for the device's queue."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i] = float(v)
+    return out

@@ -1,5 +1,5 @@
-"""Scan-to-map matching and keyframe management, the part of
-``alego_tpu.models.laser_mapping`` that the frame step runs.
+"""Scan-to-map matching, keyframe management and loop closure, the port of
+``alego_tpu.models.laser_mapping``.
 
 * the local map is the voxel-merged window of the last
   ``recent_keyframe_search_num`` keyframes (LM.cpp:351-388, the
@@ -10,25 +10,36 @@
   Huber(0.1) and the degeneracy projector;
 * keyframe saves (LM.cpp:636-704) are masked in-place row writes into the
   preallocated store: the ~100 MiB keyframe arrays are never copied.  The
-  state passed in is therefore updated in place.
+  state passed in is therefore updated in place;
+* loop closure (LM.cpp:779-975): drift-aware candidate search, ICP on the
+  1-NN kernel from identity and, when that fails the gate, from a
+  bird's-eye-view alignment, the structure-inlier acceptance gate on the
+  k = 1 k-NN kernel, two consistency gates, and the factored pose-graph
+  solve from two initialisations; ``compact_keyframes`` thins old keyframes
+  near capacity.  Where the reference branches with ``lax.cond``, the host
+  reads the device flag (each read is listed where it happens).
 
-Not ported yet: loop closure and keyframe compaction, and the
-radius-mode local map used when ``loop_closure_enabled=False``.
+Not ported yet: the radius-mode local map used when
+``loop_closure_enabled=False``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from ..config import PipelineConfig
+from ..device import at, const
 from ..ops import se3
 from ..ops.knn import knn_best as knn
-from ..ops.voxel import voxel_downsample, voxel_downsample_exact
+from ..ops.voxel import voxel_downsample, voxel_downsample_exact, compact_masked
 from ..ops.eig3 import pca_line_fit, plane_fit
 from ..ops.residuals import point_to_line, point_to_plane_fitted
 from ..ops.gauss_newton import solve_gn, dims, FULL_DIMS
+from ..ops.icp import icp_point_to_point, ICPResult
+from ..ops.bev_align import bev_align, _ground_z
 from . import pose_graph as pg
 
 
@@ -43,7 +54,7 @@ class MappingState(NamedTuple):
     kf_outlier_valid: torch.Tensor
     T_map2odom: torch.Tensor      # [4, 4]
     T_map2laser: torch.Tensor     # [4, 4]
-    last_loop_kf: torch.Tensor    # int32 (loop closure, not ported yet)
+    last_loop_kf: torch.Tensor    # int32 keyframe of the last loop attempt
     loop_attempts: torch.Tensor   # int32
     loop_best_fitness: torch.Tensor
     loop_best_inlier: torch.Tensor
@@ -237,3 +248,282 @@ def mapping_step(ms: MappingState, T_odom2laser: torch.Tensor,
     # transformUpdate (LM.cpp:626-634)
     T_map2odom = T_new @ se3.inv_mat(T_odom2laser)
     return ms._replace(T_map2odom=T_map2odom, T_map2laser=T_new), T_new
+
+
+def compact_keyframes(ms: MappingState, cfg: PipelineConfig) -> MappingState:
+    """Keyframe decimation at capacity (the keep-mapping-forever policy):
+    drop every 2nd keyframe outside the recent window.
+
+    Kept: node 0 (the prior), the recent window (the local map's), and every
+    endpoint of an accepted loop factor (stored loop constraints stay
+    exact); chain links are re-derived between surviving neighbours from
+    the current estimates.  Run by ``SlamPipeline`` near capacity."""
+    g = ms.graph
+    M = cfg.max_keyframes
+    dtype, dev = g.poses.dtype, g.poses.device
+    idx = torch.arange(M, device=dev)
+    count = g.count
+    active = idx < count
+    keep = active & ((idx >= count - cfg.recent_keyframe_search_num) | (idx % 2 == 0))
+    # pin loop-factor endpoints (a scatter-max of the active-slot flags)
+    l_act = torch.arange(g.loop_w.shape[0], device=dev) < g.loop_count
+    keep_i = keep.to(torch.int32)
+    keep_i.scatter_reduce_(0, g.loop_i.long(), l_act.to(torch.int32), reduce="amax")
+    keep_i.scatter_reduce_(0, g.loop_j.long(), l_act.to(torch.int32), reduce="amax")
+    keep = keep_i.bool() & active
+
+    new_count = torch.sum(keep).to(torch.int32)
+    rank = torch.cumsum(keep.to(torch.int32), 0, dtype=torch.int32) - 1
+    # compaction permutation: kept rows ascending, dropped after (unique keys)
+    perm = torch.argsort(torch.where(keep, idx, M + idx), stable=True)
+    row_ok = idx < new_count
+    eye = torch.eye(4, dtype=dtype, device=dev)
+
+    poses = torch.where(row_ok[:, None, None], g.poses[perm], eye)
+    prev = torch.where(row_ok[:, None, None], poses[torch.clamp(idx - 1, min=0)], eye)
+    chain_rel = torch.where((idx > 0)[:, None, None], se3.inv_mat(prev) @ poses, poses)
+
+    def gath(a):
+        mask = row_ok.reshape((M,) + (1,) * (a.ndim - 1))
+        return torch.where(mask, a[perm], torch.zeros((), dtype=a.dtype, device=dev))
+
+    def remap(i):
+        return torch.where(l_act, rank[i.long()], i)
+
+    graph = g._replace(poses=poses, chain_rel=chain_rel, loop_i=remap(g.loop_i),
+                       loop_j=remap(g.loop_j), count=new_count)
+    last = ms.last_loop_kf
+    return ms._replace(
+        graph=graph, kf_times=gath(ms.kf_times),
+        kf_corner=gath(ms.kf_corner), kf_corner_valid=gath(ms.kf_corner_valid),
+        kf_surf=gath(ms.kf_surf), kf_surf_valid=gath(ms.kf_surf_valid),
+        kf_outlier=gath(ms.kf_outlier), kf_outlier_valid=gath(ms.kf_outlier_valid),
+        last_loop_kf=torch.where(last >= 0, at(rank, torch.clamp(last, min=0)), last),
+        map_dirty=torch.ones_like(ms.map_dirty))
+
+
+# ---------------------------------------------------------------------------
+# loop closure (LM.cpp:779-975)
+# ---------------------------------------------------------------------------
+
+def _loop_acceptance(res: ICPResult, src, src_ok, tgt, tgt_ok, cfg: PipelineConfig):
+    """(accept, factor_weight, inlier_frac) for an ICP result.
+
+    Reference mode (``loop_min_inlier_frac == 0``): the raw
+    ``getFitnessScore() < history_fitness_score`` (LM.cpp:842).  Default:
+    structure points only (more than 0.4 m above their cloud's ground
+    level), matched structure to structure by the k = 1 k-NN; a fraction >=
+    ``loop_min_inlier_frac`` must lie within ``loop_inlier_radius`` of the
+    history cloud and their RMS must beat ``loop_inlier_rmse``."""
+    if cfg.loop_min_inlier_frac <= 0.0:
+        accept = res.converged & (res.fitness < cfg.history_fitness_score)
+        weight = 1.0 / torch.clamp(res.fitness, min=1e-3)
+        return accept, weight, torch.zeros((), dtype=src.dtype, device=src.device)
+
+    moved = src @ res.transform[:3, :3].T + res.transform[:3, 3]
+    tgt_struct = tgt_ok & (tgt[:, 2] - _ground_z(tgt, tgt_ok) > 0.4)
+    d2 = knn(moved, src_ok, tgt, tgt_struct, 1)[0][:, 0]
+    struct = src_ok & (src[:, 2] - _ground_z(src, src_ok) > 0.4)
+    inl = struct & (d2 < cfg.loop_inlier_radius ** 2)
+    n_struct = torch.sum(struct)
+    n_inl = torch.sum(inl)
+    frac = n_inl.to(src.dtype) / torch.clamp(n_struct, min=1).to(src.dtype)
+    ms_inl = (torch.sum(torch.where(inl, d2, 0.0))
+              / torch.clamp(n_inl, min=1).to(src.dtype))
+    # a cloud with (almost) no structure cannot be verified: reject
+    accept = (res.converged & (n_struct >= 32)
+              & (frac >= cfg.loop_min_inlier_frac)
+              & (ms_inl <= cfg.loop_inlier_rmse ** 2))
+    return accept, 1.0 / torch.clamp(ms_inl, min=1e-3), frac
+
+
+def _keyframe_cloud(ms: MappingState, k, pose, cap):
+    """All three feature clouds of keyframe k, transformed by ``pose`` and
+    front-compacted into ``cap`` slots."""
+    pts = torch.cat([at(ms.kf_corner, k), at(ms.kf_surf, k), at(ms.kf_outlier, k)], 0)
+    val = torch.cat([at(ms.kf_corner_valid, k), at(ms.kf_surf_valid, k),
+                     at(ms.kf_outlier_valid, k)], 0)
+    return compact_masked(pts @ pose[:3, :3].T + pose[:3, 3], val, cap)
+
+
+def _chain_cumsum(g: pg.PoseGraph) -> torch.Tensor:
+    """Cumulative path length along the odometry chain (chain_rel[0] is the
+    node-0 prior, not a step)."""
+    idx = torch.arange(g.poses.shape[0], device=g.poses.device)
+    step = torch.linalg.vector_norm(g.chain_rel[:, :3, 3], dim=-1)
+    return torch.cumsum(torch.where((idx > 0) & (idx < g.count), step, 0.0), 0)
+
+
+def _chain_path_to_latest(ms: MappingState, latest):
+    """Path length along the chain from each keyframe to the latest one."""
+    cum = _chain_cumsum(ms.graph)
+    return torch.clamp(at(cum, torch.clamp(latest, min=0)) - cum, min=0.0)
+
+
+def detect_loop(ms: MappingState, cfg: PipelineConfig):
+    """Drift-aware candidate search: (found, closest, latest), all on the
+    device.  The search radius grows with the path to the latest keyframe,
+    ``history_search_radius + loop_drift_radius_frac * path``; candidates
+    rank by d2 / r_eff^2, the first index on ties; the 30 s age gate is the
+    reference's (LM.cpp:934)."""
+    latest = ms.graph.count - 1
+    kp = ms.graph.poses[:, :3, 3]
+    cur_t = at(kp, torch.clamp(latest, min=0))
+    idx = torch.arange(cfg.max_keyframes, device=kp.device)
+    act = (idx < latest) & (latest >= 0)
+    d2 = torch.sum((kp - cur_t) ** 2, -1)
+    old_enough = (at(ms.kf_times, torch.clamp(latest, min=0)) - ms.kf_times) > cfg.loop_time_gap
+    r_eff = (cfg.history_search_radius
+             + cfg.loop_drift_radius_frac * _chain_path_to_latest(ms, latest))
+    score = d2 / (r_eff * r_eff)
+    elig = act & old_enough & (score < 1.0)
+    closest = torch.argmin(torch.where(elig, score, 1e30)).to(torch.int32)
+    return elig.any(), closest, latest
+
+
+def _history_cloud(ms: MappingState, closest, latest, cfg: PipelineConfig):
+    """The voxelised map-frame cloud of the keyframes within
+    ``history_search_num`` of the candidate (before the latest one)."""
+    hs = cfg.history_search_num
+    span = 2 * hs + 1
+    start = torch.clamp(closest - hs, 0, max(cfg.max_keyframes - span, 0))
+    rows = start.long() + torch.arange(span, device=start.device)
+    ok_j = (torch.abs(rows - closest) <= hs) & (rows >= 0) & (rows < latest)
+    poses_j = ms.graph.poses[rows]
+    clouds = [(ms.kf_corner, ms.kf_corner_valid), (ms.kf_surf, ms.kf_surf_valid),
+              (ms.kf_outlier, ms.kf_outlier_valid)]
+    pts, val = [], []
+    for a, v in clouds:
+        ok = v[rows] & ok_j[:, None]
+        pts.append(_transform_kf_clouds(poses_j, a[rows], ok).reshape(-1, 3))
+        val.append(ok.reshape(-1))
+    return voxel_downsample(torch.cat(pts), torch.cat(val), cfg.history_leaf, cfg.loop_hist_cap)
+
+
+def _pick(cond, a, b):
+    """Leaf-wise ``where(cond, a, b)`` over two NamedTuples of tensors."""
+    return type(a)(*(torch.where(cond, x, y) for x, y in zip(a, b)))
+
+
+def _smear(g: pg.PoseGraph, correction, closest, latest):
+    """Anchor-hinged smear: every node k gets the left correction
+    A exp(f_k d_A) A^-1 with A the candidate's pose and f_k the path
+    fraction from the candidate to the latest keyframe (0 before the anchor,
+    1 from the latest on): the rotational chain bend that GN cannot find
+    from the drifted poses, which it then polishes."""
+    A = at(g.poses, closest)
+    A_inv = se3.inv_mat(A)
+    d_A = se3.se3_log(A_inv @ correction @ A)
+    cum = _chain_cumsum(g)
+    c_cl = at(cum, closest)
+    denom = torch.clamp(at(cum, latest) - c_cl, min=1e-6)
+    f = torch.clamp((cum - c_cl) / denom, 0.0, 1.0)
+    D = A @ se3.se3_exp(d_A * f[:, None]) @ A_inv
+    return torch.einsum("nij,njk->nik", D, g.poses)
+
+
+def _close(ms: MappingState, res: ICPResult, weight, closest, latest,
+           cfg: PipelineConfig):
+    """Add the loop factor and solve (LM.cpp:862-882).  Returns
+    (state, committed) with committed a device bool: the post-solve chain
+    bend gate rolls the whole change back on the device, no host read."""
+    g = ms.graph
+    pose_latest = at(g.poses, latest)
+    rel = se3.inv_mat(res.transform @ pose_latest) @ at(g.poses, closest)
+    g_raw = pg.add_loop_factor(g, latest, closest, rel, weight)
+    act = (torch.arange(cfg.max_keyframes, device=g.poses.device) < g.count)[:, None, None]
+    g_sm = g_raw._replace(poses=torch.where(
+        act, _smear(g, res.transform, closest, latest), g_raw.poses))
+
+    # both initialisations, keep the lower-energy solution: the smear suits
+    # drift accumulated along the path, the raw poses a discrepancy near
+    # the latest node
+    sigma = cfg.pose_graph_chain_sigma
+    g0, g1 = (pg.optimize(x, sigma, iters=cfg.pose_graph_gn_iters) for x in (g_raw, g_sm))
+    g_new = _pick(pg.graph_energy(g1, sigma) < pg.graph_energy(g0, sigma), g1, g0)
+    # correctPoses map2odom rebase (LM.cpp:725-726); the local map is stale
+    new = dict(graph=g_new, T_map2odom=res.transform @ ms.T_map2odom,
+               T_map2laser=at(g_new.poses, latest),
+               map_dirty=torch.ones_like(ms.map_dirty))
+    committed = torch.ones_like(ms.map_dirty)
+    if cfg.loop_chain_bend_max > 0:
+        # no chain link may bend beyond its odometry's plausible range, in
+        # translation or rotation; a factor the chain refuses is rolled back
+        idx = torch.arange(cfg.max_keyframes, device=g.poses.device)
+        prev = g_new.poses[torch.clamp(idx - 1, min=0)]
+        E = se3.inv_mat(g_new.chain_rel) @ se3.inv_mat(prev) @ g_new.poses
+        link = (idx > 0) & (idx < g_new.count)
+        bend_t = torch.linalg.vector_norm(E[:, :3, 3], dim=-1)
+        cos_r = (torch.diagonal(E[:, :3, :3], dim1=-2, dim2=-1).sum(-1) - 1.0) * 0.5
+        bend_r = torch.acos(torch.clamp(cos_r, -1.0, 1.0))
+        rot_max = (torch.full((), cfg.loop_chain_bend_max_rot_deg, dtype=bend_r.dtype,
+                              device=bend_r.device) * const(math.pi / 180, bend_r))
+        committed = ((torch.max(torch.where(link, bend_t, 0.0)) <= cfg.loop_chain_bend_max)
+                     & (torch.max(torch.where(link, bend_r, 0.0)) <= rot_max))
+        new = dict(graph=_pick(committed, g_new, g),
+                   **{k: torch.where(committed, v, getattr(ms, k))
+                      for k, v in new.items() if k != "graph"})
+    return ms._replace(**new), committed
+
+
+def _attempt(ms: MappingState, closest, latest, cfg: PipelineConfig):
+    """One loop attempt against candidate ``closest``: (state, closed,
+    fitness, inlier_frac).  Host reads: one per ICP iteration, one for the
+    rescue branch (with ``loop_coarse_align``), one for the solve branch."""
+    pose_latest = at(ms.graph.poses, latest)
+    # raw (unfiltered) source cloud: getFitnessScore averages over raw
+    # source points, and the gate is calibrated on them
+    src, src_ok = _keyframe_cloud(ms, latest, pose_latest, cfg.loop_latest_cap)
+    # ICP iterates on a decimated source (made contiguous once for the
+    # kernel); the acceptance gate scores the full one
+    d = max(1, cfg.loop_icp_decimate)
+    src_i, src_i_ok = src[::d].contiguous(), src_ok[::d].contiguous()
+    tgt, tgt_ok = _history_cloud(ms, closest, latest, cfg)
+
+    res = icp_point_to_point(src_i, src_i_ok, tgt, tgt_ok, cfg.icp_iters,
+                             cfg.icp_max_corr_dist, cfg.icp_translation_eps)
+    accept, weight, inlier_frac = _loop_acceptance(res, src, src_ok, tgt, tgt_ok, cfg)
+    if cfg.loop_coarse_align and not bool(accept):
+        # wide-basin rescue: a bird's-eye structure correlation recovers
+        # (yaw, dx, dy, dz) globally, then a short ICP refines
+        ba = bev_align(src, src_ok, tgt, tgt_ok, pose_latest[:2, 3],
+                       at(ms.graph.poses, closest)[:2, 3], grid=cfg.loop_bev_grid,
+                       res=cfg.loop_bev_res, n_yaw=cfg.loop_bev_yaws)
+        res_b = icp_point_to_point(src_i, src_i_ok, tgt, tgt_ok,
+                                   min(cfg.icp_iters, cfg.loop_rescue_icp_iters),
+                                   cfg.icp_max_corr_dist, cfg.icp_translation_eps,
+                                   T0=ba.transform)
+        res = _pick(res_b.converged & (res_b.fitness < res.fitness), res_b, res)
+        accept, weight, inlier_frac = _loop_acceptance(res, src, src_ok, tgt, tgt_ok, cfg)
+
+    # consistency gate 1 (pre-solve): the correction may move the latest pose
+    # by at most the plausible accumulated drift
+    if cfg.loop_max_correction_abs > 0:
+        path_cl = at(_chain_path_to_latest(ms, latest), closest)
+        disp = torch.linalg.vector_norm((res.transform @ pose_latest)[:3, 3] - pose_latest[:3, 3])
+        accept = accept & (disp <= cfg.loop_max_correction_abs
+                           + cfg.loop_max_correction_frac * path_cl)
+    if not bool(accept):
+        return ms, accept, res.fitness, inlier_frac
+    ms, committed = _close(ms, res, weight, closest, latest, cfg)
+    return ms, committed, res.fitness, inlier_frac
+
+
+def loop_closure_step(ms: MappingState, cfg: PipelineConfig):
+    """performLoopClosure: returns (new_state, closed, fitness).
+
+    One host read decides whether an attempt runs (a candidate exists, the
+    latest keyframe was not tried yet, and the graph has two nodes); a
+    gated-off call launches nothing."""
+    found, closest, latest = detect_loop(ms, cfg)
+    do = found & (latest != ms.last_loop_kf) & (ms.graph.count > 1)
+    if not bool(do):
+        return (ms, torch.zeros_like(do),
+                torch.full((), 1e9, dtype=ms.T_map2odom.dtype, device=do.device))
+    ms, closed, fitness, inlier = _attempt(ms, closest, latest, cfg)
+    ms = ms._replace(
+        last_loop_kf=latest.to(torch.int32),
+        loop_attempts=ms.loop_attempts + 1,
+        loop_best_fitness=torch.minimum(ms.loop_best_fitness, fitness),
+        loop_best_inlier=torch.maximum(ms.loop_best_inlier, inlier))
+    return ms, closed, fitness

@@ -1,22 +1,22 @@
 """End-to-end SLAM frame step and the host loop that feeds it, the port of
-``alego_tpu.models.pipeline`` (static path: ``use_imu``/``use_odom`` off,
-``loop_in_step=False``).
+``alego_tpu.models.pipeline`` (de-skew off: ``use_imu``/``use_odom``).
 
 Per frame, ``slam_step`` runs projection, segmentation (the CCL kernel),
 feature extraction, two-step odometry (the 1-NN kernel) and, on every
 ``map_frame_decimation``'th frame, scan-to-map mapping with keyframe saves
-(the k-NN kernel).  State is NamedTuples of tensors like the reference's;
-the keyframe store is updated in place.
+(the k-NN kernel).  Loop closure (ICP on the 1-NN kernel, acceptance on the
+k = 1 k-NN kernel, the pose-graph solve) runs inside the step every
+``loop_every_n_frames`` frames with ``loop_in_step=True`` (the config
+default), or, with ``loop_in_step=False``, as the host loop's own call
+between frames (``SlamPipeline._maybe_loop``).  State is NamedTuples of
+tensors like the reference's; the keyframe store is updated in place.
 
-Not ported yet: loop closure (the reference's hoisted
-``_maybe_loop`` program), de-skew, keyframe compaction at capacity,
-checkpoints and the batched ``run_scanned`` path.
+Not ported yet: de-skew, checkpoints and the batched ``run_scanned`` path.
 """
 
 from __future__ import annotations
 
 import typing
-import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -51,15 +51,14 @@ def init_state(cfg: PipelineConfig, device=None, dtype=torch.float32) -> SlamSta
 
 
 def slam_step(state: SlamState, points: torch.Tensor, mask: torch.Tensor,
-              time: torch.Tensor, cfg: PipelineConfig, do_map_static=None):
+              time: torch.Tensor, cfg: PipelineConfig, do_map_static=None,
+              do_loop_static=None):
     """Process one raw scan. Returns (state, T_map2laser).
 
     ``do_map_static``: the every-2nd-frame mapping gate (LM.cpp:244-245) as
-    a host bool; ``None`` reads ``state.frame`` from the device."""
-    if cfg.loop_in_step:
-        raise NotImplementedError(
-            "loop closure inside the frame step (loop_in_step=True) is not "
-            "ported yet; use cfg.replace(loop_in_step=False)")
+    a host bool; ``do_loop_static``: the ``loop_every_n_frames`` cadence of
+    the in-step loop attempt (``loop_in_step=True``) as a host bool.  For
+    either, ``None`` reads ``state.frame`` from the device."""
     if cfg.use_imu or cfg.use_odom:
         raise NotImplementedError("de-skew (use_imu/use_odom) is not ported yet")
 
@@ -76,6 +75,15 @@ def slam_step(state: SlamState, points: torch.Tensor, mask: torch.Tensor,
             fc.less_sharp_pts, fc.less_sharp_valid,
             fc.less_flat_pts, fc.less_flat_valid,
             seg.outlier_points, seg.outlier_valid, time, cfg)
+
+    # the loop attempt on a time cadence, the reference's 1 Hz thread
+    # (LM.cpp:779-794); loop_closure_step itself reads whether a candidate
+    # exists and the graph has two nodes (the reference's count > 1 gate)
+    if cfg.loop_closure_enabled and cfg.loop_in_step:
+        if do_loop_static is None:
+            do_loop_static = int(state.frame) % cfg.loop_every_n_frames == 0
+        if do_loop_static:
+            mapping = lm.loop_closure_step(mapping, cfg)[0]
 
     T_map2laser = mapping.T_map2odom @ T_odom2laser
     new_state = SlamState(odo=odo, mapping=mapping, frame=state.frame + 1,
@@ -158,11 +166,10 @@ class SlamPipeline:
     otherwise; the per-frame poses stay on the device until ``run`` stacks
     them."""
 
+    _sync_every = 16      # frames between capacity checks (one host read)
+    _compact_margin = 16  # compact this many keyframes before capacity
+
     def __init__(self, cfg: PipelineConfig, device=None, dtype=torch.float32):
-        if cfg.loop_in_step:
-            raise NotImplementedError(
-                "loop_in_step=True is not ported yet; use "
-                "cfg.replace(loop_in_step=False)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._dtype = dtype
@@ -173,21 +180,37 @@ class SlamPipeline:
         self.state = init_state(self.cfg, self.device, self._dtype)
         self.poses = []
         self._frame = 0
-        self._loop_warned = False
+        self._loop_live = False
+        self.compactions = 0
 
     def _maybe_loop(self, frames_advanced: int):
-        """No-op: loop closure is not ported yet.  The reference runs its
-        hoisted loop-closure program here whenever the frame counter crosses
-        a ``loop_every_n_frames`` boundary; this port warns once instead."""
+        """Hoisted loop-closure attempt (``loop_in_step=False``): run
+        ``loop_closure_step`` when the frame counter crossed a
+        ``loop_every_n_frames`` boundary, the reference's own loop thread
+        (LM.cpp:779-794).  One attempt per crossing, however many boundaries
+        it spans: a second attempt on the same graph tip is a no-op."""
         cfg = self.cfg
-        if not cfg.loop_closure_enabled or self._loop_warned:
+        if not cfg.loop_closure_enabled or cfg.loop_in_step:
             return
         before = self._frame - frames_advanced
         if self._frame // cfg.loop_every_n_frames == before // cfg.loop_every_n_frames:
             return
-        warnings.warn("loop closure is not ported to alego_tpu_torch yet: "
-                      "the loop-closure attempts are skipped", RuntimeWarning)
-        self._loop_warned = True
+        # the count > 1 guard reads the device; latched, it costs one read
+        # per run
+        if not self._loop_live:
+            if int(self.state.mapping.graph.count) <= 1:
+                return
+            self._loop_live = True
+        self.state = self.state._replace(
+            mapping=lm.loop_closure_step(self.state.mapping, cfg)[0])
+
+    def _maybe_compact(self):
+        """Keep-mapping-forever policy: near capacity, thin old keyframes
+        (``laser_mapping.compact_keyframes``) so new territory keeps mapping."""
+        if int(self.state.mapping.graph.count) >= self.cfg.max_keyframes - self._compact_margin:
+            self.state = self.state._replace(
+                mapping=lm.compact_keyframes(self.state.mapping, self.cfg))
+            self.compactions += 1
 
     def _to_device(self, a: np.ndarray, dtype) -> torch.Tensor:
         t = torch.as_tensor(a, dtype=dtype)
@@ -200,14 +223,17 @@ class SlamPipeline:
         """Feed one scan; returns the map-frame pose [4, 4] on the device."""
         t = self._frame * self.cfg.scan_period if time is None else time
         do_map = self._frame % self.cfg.map_frame_decimation == 0
+        do_loop = self._frame % self.cfg.loop_every_n_frames == 0
         self.state, pose = slam_step(
             self.state, self._to_device(points, self._dtype),
             self._to_device(mask, torch.bool),
             torch.full((), t, dtype=self._dtype, device=self.device),
-            self.cfg, do_map_static=do_map)
+            self.cfg, do_map_static=do_map, do_loop_static=do_loop)
         self._frame += 1
         self._maybe_loop(1)
         self.poses.append(pose)
+        if self._frame % self._sync_every == 0:
+            self._maybe_compact()
         return pose
 
     def run(self, points_seq: np.ndarray, mask_seq: np.ndarray) -> np.ndarray:

@@ -1,5 +1,6 @@
-"""Closed-form batched 3x3 symmetric eigen-analysis and neighbour fits,
-the port of ``alego_tpu.ops.eig3`` that mapping calls.
+"""Closed-form batched 3x3 symmetric eigen-analysis, neighbour fits and the
+Kabsch rotation, the port of ``alego_tpu.ops.eig3`` that mapping and loop
+closure call.
 
 The closed forms are kept (trigonometric eigenvalues, Cayley-Hamilton
 eigenvectors, the centred total-least-squares plane) so the port tracks the
@@ -91,3 +92,64 @@ def plane_fit(neighbors: torch.Tensor, valid: torch.Tensor, tol: float):
     dist = torch.abs(torch.einsum("...ki,...i->...k", neighbors, unit_n) + d0[..., None])
     plane_ok = torch.all(torch.where(valid, dist <= tol, True), -1)
     return unit_n, d0, plane_ok
+
+
+def _unit_or(v: torch.Tensor, fallback: torch.Tensor):
+    """Normalise v; where |v|^2 <= 1e-12 use ``fallback`` (already
+    unit): degenerate eigenspaces leave some directions unobservable, and
+    any orthonormal completion is optimal there."""
+    n2 = torch.sum(v * v, -1, keepdim=True)
+    safe = v / torch.sqrt(torch.clamp(n2, min=EPS))
+    return torch.where(n2 > 1e-12, safe, fallback)
+
+
+def _perp(v: torch.Tensor) -> torch.Tensor:
+    """A deterministic unit vector orthogonal to unit v."""
+    I = _eye(v)
+    e = torch.where(torch.abs(v[..., :1]) < 0.9, I[0].expand(v.shape), I[1].expand(v.shape))
+    w = torch.linalg.cross(v, e, dim=-1)
+    return w / torch.sqrt(torch.clamp(torch.sum(w * w, -1, keepdim=True), min=EPS))
+
+
+def rotation_from_covariance(S: torch.Tensor) -> torch.Tensor:
+    """Kabsch rotation from a 3x3 cross-covariance: the R maximising
+    ``tr(R S)`` over SO(3), in closed form (no SVD).
+
+    With S = U diag(s) V^T, Kabsch gives R = V D U^T.  V = eigvecs(S^T S)
+    and U's columns are S v_i / s_i; both bases are built right-handed
+    (third column by a cross product), so the reflection case resolves by
+    itself: R = sum_i v_i u_i^T.  Every degenerate case has a paired
+    fallback (u_i from v_i), so S = 0 gives the identity.  S is scaled to
+    unit Frobenius norm first: ICP covariances reach ~1e6, where the
+    Cayley-Hamilton products would overflow f32."""
+    fro = torch.sqrt(torch.clamp(torch.sum(S * S, dim=(-2, -1), keepdim=True), min=1e-35))
+    Sn = S / fro
+    M = Sn.transpose(-1, -2) @ Sn
+    ev = sym_eigvals_3x3(M)                     # ascending [l0, l1, l2], <= 1
+    I = _eye(S)
+    e0 = I[0].expand(S.shape[:-2] + (3,))
+
+    # v2 by Cayley-Hamilton; where l2 ~ l1 the product vanishes: fall back to
+    # the top eigenplane (best column of M - l0 I), then to e0 (isotropy).
+    # v0 has the strong signal exactly when the top plane is degenerate, so
+    # the middle vector is v1 = v2 x v0.
+    M0 = M - ev[..., 0, None, None] * I
+    plane = _unit_or(_best_column(M0), e0)
+    M1 = M - ev[..., 1, None, None] * I
+    v2 = _unit_or(_best_column(M0 @ M1), plane)
+    v0raw = _best_column(M1 @ (M - ev[..., 2, None, None] * I))
+    v0raw = v0raw - torch.sum(v0raw * v2, -1, keepdim=True) * v2
+    v0 = _unit_or(v0raw, _perp(v2))
+    v1 = torch.linalg.cross(v2, v0, dim=-1)     # right-handed [v0, v1, v2]
+
+    # u-basis fallbacks pair with the v-basis (u_i -> v_i): S ~ 0 (no ICP
+    # correspondence in range) must give the identity, not a fixed rotation
+    u2 = _unit_or((Sn @ v2[..., None])[..., 0], v2)
+    u1raw = (Sn @ v1[..., None])[..., 0]
+    u1raw = u1raw - torch.sum(u1raw * u2, -1, keepdim=True) * u2
+    v1p = v1 - torch.sum(v1 * u2, -1, keepdim=True) * u2
+    u1 = _unit_or(u1raw, _unit_or(v1p, _perp(u2)))
+    u0 = torch.linalg.cross(u1, u2, dim=-1)
+    return (v2[..., :, None] * u2[..., None, :]
+            + v1[..., :, None] * u1[..., None, :]
+            + v0[..., :, None] * u0[..., None, :])

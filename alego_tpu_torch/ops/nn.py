@@ -29,28 +29,36 @@ NN1_QUERIES = 64
 NN1_BLOCKS_PER_SM = 4
 KNN_QUERIES = 64
 KNN_BLOCKS_PER_SM = 16
+# refs per tile of the plain versions (two [Q, chunk] f32 buffers; 1024
+# keeps them in cache on the CPU)
+PLAIN_CHUNK = 1024
 
 
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def _tile_dists(query: torch.Tensor, ref: torch.Tensor, pen: torch.Tensor):
-    """[Q, n] squared distances, one rounded f32 operation at a time."""
-    d = None
-    for c in range(3):
-        diff = query[:, None, c] - ref[None, :, c]
-        sq = diff * diff
-        d = sq if d is None else d + sq
-    return d + pen[None, :]
+def _tile_dists(qT: torch.Tensor, rT: torch.Tensor, pen: torch.Tensor,
+                d: torch.Tensor, tmp: torch.Tensor):
+    """Squared distances from coordinate-major points qT [3, Q] and
+    rT [3, n] into d [Q, n], one rounded f32 operation at a time, through
+    the caller's buffers d and tmp (no allocation per tile)."""
+    torch.sub(qT[0, :, None], rT[0, None, :], out=d)
+    d.mul_(d)
+    for c in (1, 2):
+        torch.sub(qT[c, :, None], rT[c, None, :], out=tmp)
+        tmp.mul_(tmp)
+        d.add_(tmp)
+    return d.add_(pen[None, :])
 
 
-def knn_plain(query, qmask, ref, rmask, k: int, chunk: int = 4096):
+def knn_plain(query, qmask, ref, rmask, k: int, chunk: int = PLAIN_CHUNK):
     """k best refs per query, ascending, the Pallas contract (see module).
 
-    Streams the refs in chunks; per chunk the k best come from repeated
-    min-and-mask (first index on ties), merged with the running best by a
-    stable sort that keeps earlier (lower-index) entries first on ties."""
+    Streams the refs in chunks; per chunk the k best come
+    from repeated min-and-mask (first index on ties), merged with the
+    running best by a stable sort that keeps earlier (lower-index) entries
+    first on ties."""
     Q, N = query.shape[0], ref.shape[0]
     pen = torch.where(rmask, 0.0, BIG).to(query.dtype)
     if N < k:   # Pallas pads the ref tile: the padding fills empty slots
@@ -58,14 +66,19 @@ def knn_plain(query, qmask, ref, rmask, k: int, chunk: int = 4096):
         pen = torch.cat([pen, pen.new_full((k - N,), BIG)])
     best_d = query.new_empty((Q, 0))
     best_i = torch.empty((Q, 0), dtype=torch.int64, device=query.device)
-    for c0 in range(0, ref.shape[0], chunk):
-        d = _tile_dists(query, ref[c0:c0 + chunk], pen[c0:c0 + chunk])
+    qT, rT = query.T.contiguous(), ref.T.contiguous()
+    width = min(chunk, ref.shape[0])
+    buf, tmp = query.new_empty((Q, width)), query.new_empty((Q, width))
+    for c0 in range(0, ref.shape[0], width):
+        n = min(width, ref.shape[0] - c0)
+        d = _tile_dists(qT, rT[:, c0:c0 + n], pen[c0:c0 + n], buf[:, :n], tmp[:, :n])
         loc_d, loc_i = [], []
-        for _ in range(min(k, d.shape[1])):
+        for j in range(min(k, n)):
+            if j:
+                d.scatter_(1, a, float("inf"))
             a = torch.argmin(d, dim=1, keepdim=True)
             loc_d.append(torch.gather(d, 1, a))
             loc_i.append(a + c0)
-            d = d.scatter(1, a, float("inf"))
         cat_d = torch.cat([best_d] + loc_d, 1)
         cat_i = torch.cat([best_i] + loc_i, 1)
         cat_d, order = torch.sort(cat_d, dim=1, stable=True)
@@ -77,7 +90,7 @@ def knn_plain(query, qmask, ref, rmask, k: int, chunk: int = 4096):
     return d, i
 
 
-def nn1_plain(query, qmask, ref, rmask, chunk: int = 4096):
+def nn1_plain(query, qmask, ref, rmask, chunk: int = PLAIN_CHUNK):
     d, i = knn_plain(query, qmask, ref, rmask, 1, chunk)
     return d[:, 0], i[:, 0]
 

@@ -1,10 +1,11 @@
 """SO(3)/SE(3) utilities (batched), the part of ``alego_tpu.ops.se3`` that
-the frame step calls.
+the frame step and loop closure call (``rot_to_quat`` belongs to the CLI).
 
 Conventions match the reference: rotations compose as
 ``Rz(yaw) @ Ry(pitch) @ Rx(roll)``, pose params are the Ceres block layout
 ``[tx, ty, tz, roll, pitch, yaw]``, and every function takes arbitrary
-leading batch dimensions.
+leading batch dimensions.  The pose-graph solve uses the se(3) exponential
+map with twists ordered ``[rho(3), phi(3)]``, in f32 or f64.
 """
 
 from __future__ import annotations
@@ -95,3 +96,95 @@ def drotp_drpy(rpy: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     col_p = torch.stack([dx_dp, dy_dp, dz_dp], -1)
     col_y = torch.stack([dx_dy, dy_dy, dz_dy], -1)
     return torch.stack([col_r, col_p, col_y], -1)
+
+
+# ---------------------------------------------------------------------------
+# se(3) exponential / logarithm, twist = [rho(3), phi(3)] (loop closure:
+# the pose-graph solve and the loop-correction smear)
+# ---------------------------------------------------------------------------
+
+def _eye3(like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=like.dtype, device=like.device)
+
+
+def hat(v: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> [..., 3, 3] skew-symmetric."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack([
+        torch.stack([zero, -z, y], -1),
+        torch.stack([z, zero, -x], -1),
+        torch.stack([-y, x, zero], -1),
+    ], -2)
+
+
+def so3_exp(phi: torch.Tensor) -> torch.Tensor:
+    theta = torch.clamp(torch.linalg.vector_norm(phi, dim=-1, keepdim=True), min=1e-12)
+    th = theta[..., None]
+    K = hat(phi / theta)
+    I = _eye3(phi)
+    # 1 - cos t = 2 sin^2(t/2): stable in f32 for small t
+    one_minus_cos = 2.0 * torch.sin(th / 2) ** 2
+    R = I + torch.sin(th) * K + one_minus_cos * (K @ K)
+    return torch.where(th < 1e-6, I + hat(phi), R)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    tr = torch.diagonal(R, dim1=-2, dim2=-1).sum(-1)
+    theta = torch.acos(torch.clamp((tr - 1) / 2, -1.0, 1.0))
+    w = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                     R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], -1)
+    th = theta[..., None]
+    scale = torch.where(th < 1e-6, 0.5,
+                        th / torch.clamp(2 * torch.sin(th), min=1e-12))
+    return scale * w
+
+
+def _so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    theta = torch.linalg.vector_norm(phi, dim=-1)
+    th = torch.clamp(theta, min=1e-9)[..., None, None]
+    K = hat(phi / torch.clamp(theta, min=1e-9)[..., None])
+    I = _eye3(phi)
+    one_minus_cos = 2.0 * torch.sin(th / 2) ** 2          # stable 1 - cos
+    J = I + (one_minus_cos / th) * K + ((th - torch.sin(th)) / th) * (K @ K)
+    # f32: (th - sin th) cancels catastrophically below ~1e-3
+    return torch.where(theta[..., None, None] < 1e-3, I + 0.5 * hat(phi), J)
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """[..., 6] twist [rho, phi] -> [..., 4, 4]."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    T = torch.zeros(xi.shape[:-1] + (4, 4), dtype=xi.dtype, device=xi.device)
+    T[..., :3, :3] = so3_exp(phi)
+    T[..., :3, 3] = torch.einsum("...ij,...j->...i", _so3_left_jacobian(phi), rho)
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """[..., 4, 4] -> [..., 6] twist [rho, phi]."""
+    phi = so3_log(T[..., :3, :3])
+    # V^-1 in closed form, with f32-stable trig: 1 - cos = 2 sin^2(t/2)
+    theta = torch.linalg.vector_norm(phi, dim=-1)
+    K = hat(phi)
+    I = _eye3(T)
+    th = torch.clamp(theta, min=1e-9)[..., None, None]
+    A = torch.sin(th) / th
+    B = 2.0 * torch.sin(th / 2) ** 2 / (th * th)
+    coef = (1 - A / (2 * torch.clamp(B, min=1e-12))) / (th * th)
+    # series limit 1/12 as theta -> 0: A / 2B loses precision below ~1e-2 in f32
+    coef = torch.where(th < 1e-2, 1.0 / 12.0, coef)
+    Vinv = I - 0.5 * K + coef * (K @ K)
+    rho = torch.einsum("...ij,...j->...i", Vinv, T[..., :3, 3])
+    return torch.cat([rho, phi], -1)
+
+
+def adjoint(T: torch.Tensor) -> torch.Tensor:
+    """[..., 4, 4] -> [..., 6, 6] adjoint for twist order [rho, phi]."""
+    R = T[..., :3, :3]
+    Ad = torch.zeros(T.shape[:-2] + (6, 6), dtype=T.dtype, device=T.device)
+    Ad[..., :3, :3] = R
+    Ad[..., :3, 3:] = hat(T[..., :3, 3]) @ R
+    Ad[..., 3:, 3:] = R
+    return Ad

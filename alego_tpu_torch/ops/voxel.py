@@ -87,11 +87,11 @@ voxel_downsample_exact = voxel_downsample
 
 
 def compact_masked(points: torch.Tensor, mask: torch.Tensor, cap: int,
-                   aux: torch.Tensor):
+                   aux: torch.Tensor | None = None):
     """Stable front-compaction of a masked set into ``cap`` slots.
 
-    Returns (points [cap, 3], mask [cap], aux [cap]) with points and aux
-    zeroed on empty slots."""
+    Returns (points [cap, 3], mask [cap]) and, given ``aux``, aux [cap],
+    with points and aux zeroed on empty slots."""
     n = points.shape[0]
     order = torch.sort((~mask).to(torch.int8), stable=True)[1]
     if n < cap:
@@ -101,4 +101,6 @@ def compact_masked(points: torch.Tensor, mask: torch.Tensor, cap: int,
     o = order.clamp(max=n - 1)
     out_mask = mask[o] & in_set
     out_pts = torch.where(out_mask[:, None], points[o], 0.0)
+    if aux is None:
+        return out_pts, out_mask
     return out_pts, out_mask, torch.where(out_mask, aux[o], 0)

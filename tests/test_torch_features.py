@@ -8,6 +8,8 @@ reference forms each voxel's sum as a difference of blocked f32 prefix sums
 docstring bounds at ~1e-3 of the leaf and which measures up to ~2e-4 m here;
 the port's f64 segment sums are exact to f32 rounding."""
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -21,6 +23,26 @@ from alego_tpu.utils import synthetic
 from alego_tpu_torch.ops import features as tfeat, segmentation as tseg, voxel as tvox
 from alego_tpu_torch.models.pipeline import tree_from_reference
 
+# one intra-op thread: the suite runs in several test processes at once,
+# where more threads per process only contend for the cores
+torch.set_num_threads(1)
+
+
+@functools.lru_cache(maxsize=None)
+def _programs(cfg):
+    """The reference's programs for ``cfg``, each compiled once per file."""
+    def labels_of(s):
+        curv, win = jfeat.curvature_and_window(s, cfg)
+        picked0 = jfeat.occlusion_mask(s, cfg)
+        labels = jax.vmap(lambda c, co, g, p, w, n: jfeat._pick_ring_parallel(
+            c, co, g, p, w, n, cfg))(curv, s.cols, s.ground, picked0, win, s.counts)
+        return (labels <= 0) & win & s.valid
+
+    return dict(
+        segment=jax.jit(lambda p, q: jseg.segment_scan(jproj.project_scan(p, q, cfg), cfg)),
+        features=jax.jit(lambda s: jfeat.extract_features(s, cfg)),
+        less_flat_mask=jax.jit(labels_of))
+
 
 def _segmented(cfg, world, pose):
     pts = synthetic.render_scan(world, pose, cfg, noise=0.01)
@@ -30,30 +52,24 @@ def _segmented(cfg, world, pose):
     m = np.zeros(n, bool)
     pad[: good.sum()] = pts[good]
     m[: good.sum()] = True
-    seg = jax.jit(lambda p, q: jseg.segment_scan(jproj.project_scan(p, q, cfg), cfg))(
-        jnp.asarray(pad), jnp.asarray(m))
-    return seg
+    return _programs(cfg)["segment"](jnp.asarray(pad), jnp.asarray(m))
 
 
 def _less_flat_oracle(seg_j, cfg):
     """Exact f64 centroids of the less-flat cloud, slot by slot: the
     reference's less-flat points per ring, grouped by the reference's hashed
     voxel key, voxels in ascending key order, cut to the ring's capacity."""
-    def labels_of(s):
-        curv, win = jfeat.curvature_and_window(s, cfg)
-        picked0 = jfeat.occlusion_mask(s, cfg)
-        labels = jax.vmap(lambda c, co, g, p, w, n: jfeat._pick_ring_parallel(
-            c, co, g, p, w, n, cfg))(curv, s.cols, s.ground, picked0, win, s.counts)
-        return (labels <= 0) & win & s.valid
-    lf_mask = np.asarray(jax.jit(labels_of)(seg_j))
+    lf_mask = np.asarray(_programs(cfg)["less_flat_mask"](seg_j))
     pts = np.asarray(seg_j.points)
+    # the reference's keys, point by point (one call for every ring)
+    keys_all = np.asarray(jvox.voxel_key(seg_j.points, cfg.less_flat_leaf, 256.0))
     R = pts.shape[0]
     cap = cfg.max_less_flat // R
     out = np.zeros((R, cap, 3))
     ok = np.zeros((R, cap), bool)
     for r in range(R):
         p = pts[r][lf_mask[r]]
-        keys = np.asarray(jvox.voxel_key(jnp.asarray(p), cfg.less_flat_leaf, 256.0))
+        keys = keys_all[r][lf_mask[r]]
         uniq, inv = np.unique(keys, return_inverse=True)
         sums = np.zeros((len(uniq), 3))
         np.add.at(sums, inv, p.astype(np.float64))
@@ -70,7 +86,7 @@ def test_features_match_reference(cfg, world, frame):
     seg_t = tree_from_reference(tseg.SegmentedScan,
                                 jax.tree_util.tree_map(np.asarray, seg_j), "cpu")
 
-    fc_j = jax.jit(lambda s: jfeat.extract_features(s, cfg))(seg_j)
+    fc_j = _programs(cfg)["features"](seg_j)
     fc_t = tfeat.extract_features(seg_t, cfg)
     for name in fc_j._fields:
         a, b = getattr(fc_t, name).numpy(), np.asarray(getattr(fc_j, name))
@@ -110,7 +126,8 @@ def test_voxel_downsample_matches_reference(cap):
     pts = rng.uniform(-40, 40, (3000, 3)).astype(np.float32)
     mask = rng.random(3000) < 0.8
     leaf = 0.8
-    p_j, m_j = jvox.voxel_downsample(jnp.asarray(pts), jnp.asarray(mask), leaf, cap)
+    p_j, m_j = jax.jit(jvox.voxel_downsample, static_argnums=(2, 3))(
+        jnp.asarray(pts), jnp.asarray(mask), leaf, cap)
     p_t, m_t = tvox.voxel_downsample(torch.from_numpy(pts), torch.from_numpy(mask), leaf, cap)
     np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
     np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), rtol=0, atol=1e-3 * leaf)

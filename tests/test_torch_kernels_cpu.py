@@ -11,6 +11,7 @@ entry there, the port the next invalid ref; both report d2 = 1e30.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -22,6 +23,10 @@ from alego_tpu.ops.pallas_nn import nn1_pallas, knn_pallas
 from alego_tpu.utils import synthetic
 
 from alego_tpu_torch.ops import ccl as tccl, knn as tknn, nn as tnn
+
+# one intra-op thread: the suite runs in several test processes at once,
+# where more threads per process only contend for the cores
+torch.set_num_threads(1)
 
 
 def _seam_image():
@@ -66,11 +71,11 @@ def test_plain_ccl_matches_pallas_and_xla(image):
     cfg, img = _seam_image() if image == "seam" else _rendered_image()
     segm = np.asarray(img.valid & ~img.ground)
     conn_r, conn_u = segmentation._neighbor_connectivity(img.ranges, jnp.asarray(segm), cfg)
-    labels_xla, _, _ = segmentation.label_components(img, cfg)
+    labels_xla, _, _ = jax.jit(lambda i: segmentation.label_components(i, cfg))(img)
     got = tccl.ccl_plain(torch.from_numpy(np.array(conn_r)),
                          torch.from_numpy(np.array(conn_u))).numpy()
     np.testing.assert_array_equal(got[segm], np.asarray(labels_xla)[segm])
-    labels_pl = ccl_fixpoint_pallas(conn_r, conn_u, interpret=True)
+    labels_pl = jax.jit(lambda r, u: ccl_fixpoint_pallas(r, u, interpret=True))(conn_r, conn_u)
     np.testing.assert_array_equal(got[segm], np.asarray(labels_pl)[segm])
     assert len(np.unique(got[segm])) > 3
 

@@ -250,3 +250,54 @@ def test_knn_runs_only_its_kernels(cuda):
     names = {ev.name for ev in prof.events()
              if ev.device_type == torch.autograd.DeviceType.CUDA}
     assert names and all("knn_" in n for n in names), names
+
+
+def _loop_case(case, dev):
+    """The loop-closure shapes: ICP's 1-NN of the decimated latest cloud
+    (2048 of 4096, front-compacted with holes) against the voxelised history
+    cloud (32768 slots, front-compacted), and the acceptance gate's k = 1
+    search of a 4096-point query (every 2nd point of an 8192 cloud, made
+    contiguous) against that history, masked to its structure points (more
+    than 0.4 m above the cloud's ground level, as the gate masks it)."""
+    rng = np.random.default_rng(17)
+    hist = np.c_[rng.uniform(-45, 45, (32768, 2)), rng.uniform(-1.5, 3.0, 32768)]
+    hist_ok = np.arange(32768) < 30111
+    src = hist[rng.integers(0, 30111, 8192)] + rng.normal(0, 0.05, (8192, 3))
+    src_ok = np.arange(8192) < 7000
+    src_ok[rng.integers(0, 7000, 300)] = False
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    q, qm = t(src.astype(np.float32)), t(src_ok)
+    r, rm = t(hist.astype(np.float32)), t(hist_ok)
+    if case == "icp":
+        q, qm = q[:4096:2], qm[:4096:2]
+    else:
+        z = torch.sort(torch.where(rm, r[:, 2], float("inf")))[0]
+        ground = z[int(float(rm.sum()) * 0.1)]
+        rm = rm & (r[:, 2] - ground > 0.4)
+        q, qm = q[::2], qm[::2]
+    return q, qm, r, rm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["icp", "acceptance"])
+def test_loop_shapes_match_plain(cuda, case):
+    """nn1 at 2048 x 32768 (ICP) and the k = 1 k-NN at 4096 x 32768
+    (acceptance), bit-equal to their plain versions; the sliced query is
+    refused until it is made contiguous, as loop closure does once per
+    attempt."""
+    q, qm, r, rm = _loop_case(case, cuda)
+    assert q.shape[0] == (2048 if case == "icp" else 4096) and r.shape[0] == 32768
+    search = ((lambda *a: nn.nn1_cuda(*a)) if case == "icp"
+              else (lambda *a: nn.knn_cuda(*a, 1)))
+    with pytest.raises(ValueError, match="contiguous"):
+        search(q, qm, r, rm)
+    q, qm = q.contiguous(), qm.contiguous()
+    d, i = search(q, qm, r, rm)
+    if case == "icp":
+        d_p, i_p = nn.nn1_plain(q, qm, r, rm)
+    else:
+        d_p, i_p = nn.knn_plain(q, qm, r, rm, 1)
+        assert 0 < int(rm.sum()) < int((r[:, 2] > -10).sum())   # a structure-only mask
+    torch.cuda.synchronize()
+    assert torch.equal(d, d_p) and torch.equal(i, i_p)
+    assert bool((d[qm] < 1e30).all())

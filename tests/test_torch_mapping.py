@@ -1,6 +1,8 @@
 """One scan-to-map mapping step of the port against the JAX reference from
 the same mapping state and inputs: pose translation within 1e-4 m, rotation
-within 1e-5 rad; the keyframe decision, count and written row equal.
+within 1e-5 rad; the keyframe decision, count and written row equal.  The
+reference's mapping step is the one inside its frame step (frame 4 maps),
+so one program is compiled.
 
 As in test_torch_odometry, the reference's neighbour searches run its
 Pallas kernels in interpret mode (the port computes their function).
@@ -22,6 +24,10 @@ from alego_tpu_torch.models.pipeline import tree_from_reference
 
 from test_torch_odometry import assert_pose_close
 
+# one intra-op thread: the suite runs in several test processes at once,
+# where more threads per process only contend for the cores
+torch.set_num_threads(1)
+
 
 def pallas_search(monkeypatch):
     """Route the reference's neighbour searches through its Pallas kernels
@@ -37,24 +43,31 @@ def test_mapping_step_matches_reference(cfg, world, monkeypatch):
     cfg = cfg.replace(loop_in_step=False)
     poses = synthetic.loop_trajectory(6, radius=20.0, speed=1.0, closed=False)
     pts, mask = synthetic.render_sequence(world, poses, cfg, noise=0.01)
-    step = jax.jit(lambda st, p, m, t: jpipe.slam_step(st, p, m, t, cfg))
-    st = jpipe.init_state(cfg)
-    for k in range(4):
-        st, _ = step(st, jnp.asarray(pts[k]), jnp.asarray(mask[k]), jnp.float32(0.2 * k))
-    assert int(st.mapping.graph.count) >= 2
+    def step_and_inputs(st, p, m, t):
+        """One frame of the reference, and that frame's mapping inputs."""
+        seg = image_projection(p, m, cfg)
+        fc = jfeat.extract_features(seg, cfg)
+        _, T_odom = jlo.odometry_step(st.odo, fc, cfg)
+        inputs = (T_odom, fc.less_sharp_pts, fc.less_sharp_valid, fc.less_flat_pts,
+                  fc.less_flat_valid, seg.outlier_points, seg.outlier_valid, t)
+        return jpipe.slam_step(st, p, m, t, cfg)[0], inputs
 
-    # frame 4's mapping inputs, computed once by the reference
-    seg = jax.jit(lambda p, m: image_projection(p, m, cfg))(jnp.asarray(pts[4]),
-                                                           jnp.asarray(mask[4]))
-    fc = jax.jit(lambda s: jfeat.extract_features(s, cfg))(seg)
-    _, T_odom = jax.jit(lambda o, f: jlo.odometry_step(o, f, cfg))(st.odo, fc)
-    inputs = (T_odom, fc.less_sharp_pts, fc.less_sharp_valid, fc.less_flat_pts,
-              fc.less_flat_valid, seg.outlier_points, seg.outlier_valid,
-              jnp.float32(0.8))
+    # one compile of the step: frames 0-3 advance the state; frame 4 (a
+    # mapping frame) gives its mapping inputs and, in the state it returns,
+    # the reference's mapping_step on them
+    step = jax.jit(step_and_inputs)
+    st = jpipe.init_state(cfg)
+    for k in range(5):
+        st_next, inputs = step(st, jnp.asarray(pts[k]), jnp.asarray(mask[k]),
+                               jnp.float32(0.2 * k))
+        if k < 4:
+            st = st_next
+    assert int(st.mapping.graph.count) >= 2
 
     ms_t = tree_from_reference(tlm.MappingState,
                                jax.tree_util.tree_map(np.asarray, st.mapping), "cpu")
-    ms_j, T_j = jax.jit(lambda ms, *a: jlm.mapping_step(ms, *a, cfg))(st.mapping, *inputs)
+    ms_j = st_next.mapping
+    T_j = ms_j.T_map2laser
     ms_t, T_t = tlm.mapping_step(ms_t, *(torch.from_numpy(np.array(a)) for a in inputs), cfg)
 
     assert_pose_close(T_t, T_j)

@@ -27,6 +27,10 @@ from alego_tpu_torch.models.pipeline import tree_from_reference
 from alego_tpu_torch.ops.features import FeatureClouds
 from alego_tpu_torch.ops.se3 import rot_to_rpy
 
+# one intra-op thread: the suite runs in several test processes at once,
+# where more threads per process only contend for the cores
+torch.set_num_threads(1)
+
 
 def _nn1_interpret(q, qm, r, rm, chunk=None):
     return nn1_pallas(q, qm, r, rm, interpret=True)

@@ -6,16 +6,19 @@
 * a 6-frame trajectory from ``init_state`` on both sides, within 1e-3 m /
   1e-4 rad: the recursive pipeline carries each frame's ulp-level
   differences into the next frame's warm start and map (bench.py:194-199);
+  with ``loop_in_step=False`` (the hoisted attempt) and ``True`` (in the
+  step, on the ``loop_every_n_frames`` cadence);
 * the port imports neither jax nor alego_tpu, and its entry points refuse
   to fall back to the CPU silently.
 
 The reference's neighbour searches run its Pallas kernels in interpret mode
-(see test_torch_mapping).
+(see test_torch_mapping), and its step is compiled once for the file.
 """
 
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import jax
@@ -26,10 +29,14 @@ import torch
 from alego_tpu.models import pipeline as jpipe
 from alego_tpu.utils import synthetic
 
-from alego_tpu_torch.models import pipeline as tpipe
+from alego_tpu_torch.models import laser_mapping as tlm, pipeline as tpipe
 
 from test_torch_mapping import pallas_search
 from test_torch_odometry import assert_pose_close
+
+# one intra-op thread: the suite runs in several test processes at once,
+# where more threads per process only contend for the cores
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -42,53 +49,78 @@ def sequence(cfg, world):
     return cfg, poses, pts, mask
 
 
-def _jax_run(cfg, pts, mask, n, state=None):
-    step = jax.jit(lambda st, p, m, t: jpipe.slam_step(st, p, m, t, cfg))
-    st = jpipe.init_state(cfg) if state is None else state
-    out = []
-    for k in range(n):
-        st, pose = step(st, jnp.asarray(pts[k]), jnp.asarray(mask[k]),
-                        jnp.float32(k * cfg.scan_period))
-        out.append(np.asarray(pose))
-    return st, np.stack(out)
-
-
-def test_step_from_carried_state(sequence, monkeypatch):
-    pallas_search(monkeypatch)
+@pytest.fixture(scope="module")
+def reference_run(sequence):
+    """The reference's 6 frames from ``init_state``, compiled once: the
+    poses, and the state (as numpy) before and after frame 4."""
     cfg, _, pts, mask = sequence
-    st_j, _ = _jax_run(cfg, pts, mask, 4)
-    st_t = tpipe.state_from_reference(jax.tree_util.tree_map(np.asarray, st_j), "cpu", cfg)
+    with pytest.MonkeyPatch.context() as mp:
+        pallas_search(mp)
+        step = jax.jit(lambda st, p, m, t: jpipe.slam_step(st, p, m, t, cfg))
+        st = jpipe.init_state(cfg)
+        states, out = [], []
+        for k in range(6):
+            states.append(jax.tree_util.tree_map(np.asarray, st))
+            st, pose = step(st, jnp.asarray(pts[k]), jnp.asarray(mask[k]),
+                            jnp.float32(k * cfg.scan_period))
+            out.append(np.asarray(pose))
+    return states[4], states[5], np.stack(out)
+
+
+def test_step_from_carried_state(sequence, reference_run):
+    cfg, _, pts, mask = sequence
+    st4, mj_state, est_j = reference_run
+    st_t = tpipe.state_from_reference(st4, "cpu", cfg)
     assert int(st_t.frame) == 4
 
-    step = jax.jit(lambda st, p, m, t: jpipe.slam_step(st, p, m, t, cfg))
-    st_j, pose_j = step(st_j, jnp.asarray(pts[4]), jnp.asarray(mask[4]), jnp.float32(0.8))
     st_t, pose_t = tpipe.slam_step(st_t, torch.from_numpy(pts[4]), torch.from_numpy(mask[4]),
                                    torch.tensor(0.8), cfg)
-    assert_pose_close(pose_t, pose_j)
-    assert_pose_close(st_t.T_odom2laser, st_j.T_odom2laser)
-    mj, mt = st_j.mapping, st_t.mapping
+    assert_pose_close(pose_t, est_j[4])
+    assert_pose_close(st_t.T_odom2laser, mj_state.T_odom2laser)
+    mj, mt = mj_state.mapping, st_t.mapping
     count = int(mj.graph.count)
     assert int(mt.graph.count) == count and count >= 3
     assert bool(mt.map_dirty) == bool(mj.map_dirty)
     for name in ("kf_corner_valid", "kf_surf_valid", "kf_outlier_valid"):
         np.testing.assert_array_equal(getattr(mt, name)[count - 1].numpy(),
-                                      np.asarray(getattr(mj, name))[count - 1], err_msg=name)
+                                      getattr(mj, name)[count - 1], err_msg=name)
     assert int(st_t.frame) == 5
 
 
-def test_six_frame_trajectory(sequence, monkeypatch):
-    pallas_search(monkeypatch)
+def test_six_frame_trajectory(sequence, reference_run):
     cfg, gt, pts, mask = sequence
-    _, est_j = _jax_run(cfg, pts, mask, 6)
+    est_j = reference_run[2]
     pipe = tpipe.SlamPipeline(cfg, device="cpu")
-    with pytest.warns(RuntimeWarning, match="loop closure"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")     # the loop attempts run, unannounced
         est_t = pipe.run(pts, mask)
     assert est_t.shape == (6, 4, 4) and np.isfinite(est_t).all()
     assert_pose_close(est_t, est_j, t_tol=1e-3, r_tol=1e-4)
     assert np.abs(est_t[:, :3, 3] - gt[:, :3, 3]).max() < 0.5
+    assert pipe._loop_live and int(pipe.state.mapping.loop_attempts) == 0
     m = pipe.export_map()
     assert len(m["keyposes"]) == int(pipe.state.mapping.graph.count) >= 3
     assert m["surf"].shape[1] == 3 and len(m["surf"]) > 100
+
+
+def test_in_step_loop_cadence(sequence, reference_run, monkeypatch):
+    """``loop_in_step=True`` (the config default): the step calls the loop
+    attempt on frames 0 and 5 of 6; no candidate can pass the 30 s age gate
+    in 1.2 s, so the trajectory is the reference's hoisted-mode one."""
+    cfg, _, pts, mask = sequence
+    calls = []
+    real = tlm.loop_closure_step
+
+    def counted(ms, c):
+        calls.append(int(pipe._frame))
+        return real(ms, c)
+
+    monkeypatch.setattr(tlm, "loop_closure_step", counted)
+    pipe = tpipe.SlamPipeline(cfg.replace(loop_in_step=True), device="cpu")
+    est_t = pipe.run(pts, mask)
+    assert calls == [0, 5]
+    assert_pose_close(est_t, reference_run[2], t_tol=1e-3, r_tol=1e-4)
+    assert int(pipe.state.mapping.loop_attempts) == 0
 
 
 def test_state_from_reference_checks_layout(cfg):
@@ -114,7 +146,9 @@ def test_port_imports_no_reference():
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import alego_tpu_torch.models.pipeline, alego_tpu_torch.utils.synthetic\n"
-        "import alego_tpu_torch.utils.metrics\n"
+        "import alego_tpu_torch.utils.metrics, alego_tpu_torch.ops.icp\n"
+        "import alego_tpu_torch.ops.bev_align, alego_tpu_torch.ops.chain_solver\n"
+        "import alego_tpu_torch.models.pose_graph, alego_tpu_torch.models.laser_mapping\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'alego_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
@@ -130,5 +164,7 @@ def test_no_silent_cpu(cfg, monkeypatch):
         tpipe.SlamPipeline(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpipe.init_state(cfg)
-    with pytest.raises(NotImplementedError, match="loop_in_step"):
-        tpipe.SlamPipeline(cfg.replace(loop_in_step=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="de-skew"):
+        tpipe.slam_step(tpipe.init_state(cfg, "cpu"), torch.zeros((8, 3)),
+                        torch.zeros(8, dtype=torch.bool), torch.tensor(0.0),
+                        cfg.replace(use_imu=True))

@@ -13,6 +13,10 @@ from alego_tpu.utils import synthetic
 
 from alego_tpu_torch.ops import projection as tproj, segmentation as tseg
 
+# one intra-op thread: the suite runs in several test processes at once,
+# where more threads per process only contend for the cores
+torch.set_num_threads(1)
+
 EXACT_IMG = ("valid", "ground")
 EXACT_SEG = ("cols", "ground", "valid", "counts", "outlier_valid", "outlier_cols")
 

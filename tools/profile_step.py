@@ -44,9 +44,6 @@ def main():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    import warnings
-    warnings.filterwarnings("ignore", message="loop closure is not ported",
-                            category=RuntimeWarning)
     from torch.profiler import ProfilerActivity, profile
     from alego_tpu_torch import PipelineConfig
     from alego_tpu_torch.models.pipeline import SlamPipeline
