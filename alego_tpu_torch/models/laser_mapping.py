@@ -3,7 +3,10 @@
 
 * the local map is the voxel-merged window of the last
   ``recent_keyframe_search_num`` keyframes (LM.cpp:351-388, the
-  loop-closure mode), rebuilt only when a keyframe was added;
+  loop-closure mode), rebuilt only when a keyframe was added; with
+  ``loop_closure_enabled=False`` it is the K nearest keyframes within
+  ``surround_keyframe_search_radius`` of the predicted pose (LM.cpp:390-458,
+  the radius mode), rebuilt on every mapping frame;
 * scan2MapOptimization (LM.cpp:493-624): 2 outer association passes, 5-NN
   (the fused k-NN kernel on the GPU) with the 1 m gate, PCA line test
   (l2 > 3 l1), plane fit with 0.2 m validity, then full-6DoF GN with
@@ -18,9 +21,6 @@
   solve from two initialisations; ``compact_keyframes`` thins old keyframes
   near capacity.  Where the reference branches with ``lax.cond``, the host
   reads the device flag (each read is listed where it happens).
-
-Not ported yet: the radius-mode local map used when
-``loop_closure_enabled=False``.
 """
 
 from __future__ import annotations
@@ -103,28 +103,42 @@ def _transform_kf_clouds(poses, pts, valid):
     return torch.where(valid[..., None], out, 0.0)
 
 
-def _build_local_map(ms: MappingState, cfg: PipelineConfig):
-    """Local feature map of the last ``recent_keyframe_search_num``
-    keyframes, voxel-merged (LM.cpp:351-388).  The window's start lives on
-    the device, so its rows are gathered by index (a slice would need the
-    start on the host)."""
-    if not cfg.loop_closure_enabled:
-        raise NotImplementedError(
-            "the radius-mode local map (loop_closure_enabled=False) is not "
-            "ported yet")
+def _build_local_map(ms: MappingState, cfg: PipelineConfig,
+                     T_pred: torch.Tensor | None = None):
+    """Local feature map, voxel-merged (LM.cpp:339-468).
+
+    Loop-closure mode (default): the last ``recent_keyframe_search_num``
+    keyframes (LM.cpp:351-388); the window's start lives on the device, so
+    its rows are gathered by index (a slice would need the start on the
+    host).  Radius mode (``loop_closure_enabled=False`` and ``T_pred``
+    given): the K nearest keyframes within
+    ``surround_keyframe_search_radius`` of the predicted pose
+    (LM.cpp:390-458).  The reference selects them with ``lax.top_k``, which
+    puts the lower index first on ties; a stable descending sort does the
+    same (``torch.topk`` promises no order), and the voxel merge sees the
+    keyframes in that order."""
     K = cfg.recent_keyframe_search_num
     count = ms.graph.count.long()
-    start = torch.clamp(count - K, 0, cfg.max_keyframes - K)
-    raw_idx = torch.arange(K, device=count.device) + start
-    kf_ok = (raw_idx < count) & (count > 0)
+    if cfg.loop_closure_enabled or T_pred is None:
+        start = torch.clamp(count - K, 0, cfg.max_keyframes - K)
+        sel = torch.arange(K, device=count.device) + start
+        kf_ok = (sel < count) & (count > 0)
+    else:
+        kp = ms.graph.poses[:, :3, 3]
+        act = torch.arange(cfg.max_keyframes, device=count.device) < count
+        d2 = torch.sum((kp - T_pred[:3, 3]) ** 2, -1)
+        elig = act & (d2 < cfg.surround_keyframe_search_radius ** 2)
+        score = torch.where(elig, -d2, -1e30)
+        sel = torch.sort(score, descending=True, stable=True)[1][:K]
+        kf_ok = elig[sel]
 
-    poses = ms.graph.poses[raw_idx]
-    c_valid = ms.kf_corner_valid[raw_idx] & kf_ok[:, None]
-    s_valid = ms.kf_surf_valid[raw_idx] & kf_ok[:, None]
-    o_valid = ms.kf_outlier_valid[raw_idx] & kf_ok[:, None]
-    c_pts = _transform_kf_clouds(poses, ms.kf_corner[raw_idx], c_valid)
-    s_pts = _transform_kf_clouds(poses, ms.kf_surf[raw_idx], s_valid)
-    o_pts = _transform_kf_clouds(poses, ms.kf_outlier[raw_idx], o_valid)
+    poses = ms.graph.poses[sel]
+    c_valid = ms.kf_corner_valid[sel] & kf_ok[:, None]
+    s_valid = ms.kf_surf_valid[sel] & kf_ok[:, None]
+    o_valid = ms.kf_outlier_valid[sel] & kf_ok[:, None]
+    c_pts = _transform_kf_clouds(poses, ms.kf_corner[sel], c_valid)
+    s_pts = _transform_kf_clouds(poses, ms.kf_surf[sel], s_valid)
+    o_pts = _transform_kf_clouds(poses, ms.kf_outlier[sel], o_valid)
 
     map_corner, map_corner_valid = voxel_downsample(
         c_pts.reshape(-1, 3), c_valid.reshape(-1), cfg.corner_leaf,
@@ -208,10 +222,12 @@ def mapping_step(ms: MappingState, T_odom2laser: torch.Tensor,
     store of ``ms`` is written in place."""
     T_pred = ms.T_map2odom @ T_odom2laser
 
-    # the cached local map is rebuilt only after a keyframe was added: one
-    # flag read per mapping frame decides it on the host
-    if bool(ms.map_dirty):
-        mc, mco, msf, msfo = _build_local_map(ms, cfg)
+    # loop-closure mode: the cached local map is rebuilt only after a
+    # keyframe was added, one flag read per mapping frame decides it on the
+    # host; radius mode: the surround set follows the predicted pose, so the
+    # map is rebuilt on every mapping frame (LM.cpp:452-457), with no read
+    if not cfg.loop_closure_enabled or bool(ms.map_dirty):
+        mc, mco, msf, msfo = _build_local_map(ms, cfg, T_pred)
         ms = ms._replace(map_corner=mc, map_corner_valid=mco,
                          map_surf=msf, map_surf_valid=msfo)
     ms = ms._replace(map_dirty=torch.zeros_like(ms.map_dirty))

@@ -1,22 +1,29 @@
 """End-to-end SLAM frame step and the host loop that feeds it, the port of
-``alego_tpu.models.pipeline`` (de-skew off: ``use_imu``/``use_odom``).
+``alego_tpu.models.pipeline``.
 
 Per frame, ``slam_step`` runs projection, segmentation (the CCL kernel),
-feature extraction, two-step odometry (the 1-NN kernel) and, on every
-``map_frame_decimation``'th frame, scan-to-map mapping with keyframe saves
-(the k-NN kernel).  Loop closure (ICP on the 1-NN kernel, acceptance on the
-k = 1 k-NN kernel, the pose-graph solve) runs inside the step every
-``loop_every_n_frames`` frames with ``loop_in_step=True`` (the config
-default), or, with ``loop_in_step=False``, as the host loop's own call
-between frames (``SlamPipeline._maybe_loop``).  State is NamedTuples of
-tensors like the reference's; the keyframe store is updated in place.
+the IMU/odometry de-skew of the segmented and outlier clouds (``use_imu`` /
+``use_odom``), feature extraction, two-step odometry (the 1-NN kernel) and,
+on every ``map_frame_decimation``'th frame, scan-to-map mapping with
+keyframe saves (the k-NN kernel).  Loop closure (ICP on the 1-NN kernel,
+acceptance on the k = 1 k-NN kernel, the pose-graph solve) runs inside the
+step every ``loop_every_n_frames`` frames with ``loop_in_step=True`` (the
+config default), or, with ``loop_in_step=False``, as the host loop's own
+call between frames or chunks (``SlamPipeline._maybe_loop``).  State is
+NamedTuples of tensors like the reference's; the keyframe store is updated
+in place.
 
-Not ported yet: de-skew, checkpoints and the batched ``run_scanned`` path.
+``SlamPipeline`` feeds scans one by one (``process``) or in chunks
+(``run_scanned``, the CLI's streaming path: the reference's ``lax.scan``
+becomes a host loop over the chunk with the mapping gate taken from the
+frame phase the host knows), buffers IMU samples host-side, exports the map
+and writes schema-checked checkpoints.
 """
 
 from __future__ import annotations
 
 import typing
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -36,7 +43,7 @@ class SlamState(NamedTuple):
     mapping: lm.MappingState
     frame: torch.Tensor          # int32 frame counter
     T_odom2laser: torch.Tensor   # [4, 4] latest odometry pose
-    imu: deskew.ImuBuffer        # IMU buffer (layout parity; unused here)
+    imu: deskew.ImuBuffer        # IMU integration buffer (used if use_imu/use_odom)
 
 
 def init_state(cfg: PipelineConfig, device=None, dtype=torch.float32) -> SlamState:
@@ -59,10 +66,19 @@ def slam_step(state: SlamState, points: torch.Tensor, mask: torch.Tensor,
     a host bool; ``do_loop_static``: the ``loop_every_n_frames`` cadence of
     the in-step loop attempt (``loop_in_step=True``) as a host bool.  For
     either, ``None`` reads ``state.frame`` from the device."""
-    if cfg.use_imu or cfg.use_odom:
-        raise NotImplementedError("de-skew (use_imu/use_odom) is not ported yet")
-
     seg = image_projection(points, mask, cfg)
+    # de-skew the segmented cloud (LO.cpp:184; the odometry-aided variant
+    # LO.cpp:737-795 shares the buffer and the interpolation); the outlier
+    # cloud moves with it, since the surf map merges both (LM.cpp:385-387)
+    if cfg.use_imu or cfg.use_odom:
+        pts_ds = deskew.deskew(seg.points, seg.cols, seg.valid, time,
+                               state.imu, cfg, orient_start=seg.orient_start,
+                               orient_diff=seg.orient_diff)
+        out_ds = deskew.deskew(seg.outlier_points, seg.outlier_cols,
+                               seg.outlier_valid, time, state.imu, cfg,
+                               orient_start=seg.orient_start,
+                               orient_diff=seg.orient_diff)
+        seg = seg._replace(points=pts_ds, outlier_points=out_ds)
     fc = extract_features(seg, cfg)
     odo, T_odom2laser = lo.odometry_step(state.odo, fc, cfg)
 
@@ -160,28 +176,78 @@ def state_from_reference(tree, device=None, cfg: Optional[PipelineConfig] = None
 # host side
 # ---------------------------------------------------------------------------
 
+def _flatten(tree, path="state"):
+    """(path, tensor) leaves of a NamedTuple tree in field order, depth
+    first: the order of the reference's ``jax.tree_util.tree_flatten``."""
+    out = []
+    for name, sub in zip(tree._fields, tree):
+        if hasattr(sub, "_fields"):
+            out += _flatten(sub, f"{path}.{name}")
+        else:
+            out.append((f"{path}.{name}", sub))
+    return out
+
+
+def _unflatten(template, leaves):
+    """The tree of ``template``'s NamedTuple types with ``leaves`` (in
+    :func:`_flatten`'s order) in its places."""
+    it = iter(leaves)
+
+    def build(node):
+        return type(node)(*[build(sub) if hasattr(sub, "_fields") else next(it)
+                            for sub in node])
+    return build(template)
+
+
 class SlamPipeline:
-    """Host-side runner around ``slam_step``: feeds padded scans, collects
-    poses, exports the map.  Runs on ``cuda`` unless ``device`` says
-    otherwise; the per-frame poses stay on the device until ``run`` stacks
-    them."""
+    """Host-side runner around ``slam_step``: feeds padded scans one by one
+    (``process``) or in chunks (``run_scanned``), buffers IMU samples and
+    flushes them before each scan or chunk, collects poses, exports the map
+    and writes checkpoints.  Runs on ``cuda`` unless ``device`` says
+    otherwise; the per-frame poses stay on the device until they are read.
 
-    _sync_every = 16      # frames between capacity checks (one host read)
-    _compact_margin = 16  # compact this many keyframes before capacity
+    ``collect_odom_poses`` (debug only) keeps each frame's ``T_odom2laser``
+    of the ``process`` path in ``odom_poses`` as numpy, one host read per
+    frame."""
 
-    def __init__(self, cfg: PipelineConfig, device=None, dtype=torch.float32):
+    _sync_every = 16       # frames between capacity checks (one host read)
+    _overflow_every = 128  # frames between overflow checks on ``process``
+
+    def __init__(self, cfg: PipelineConfig, device=None, dtype=torch.float32,
+                 collect_odom_poses: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self._dtype = dtype
+        self._collect_odom = collect_odom_poses
         self.reset()
 
     def reset(self):
         """Fresh SLAM state."""
         self.state = init_state(self.cfg, self.device, self._dtype)
         self.poses = []
+        self.odom_poses = []
+        self._imu_pending = []
         self._frame = 0
         self._loop_live = False
+        self._overflow_warned = False
         self.compactions = 0
+
+    def _check_overflow(self):
+        """Surface the keyframe-capacity policy: keyframes rejected at
+        capacity are counted (``graph.overflow``), never silent.  With
+        :meth:`_maybe_compact` on the ``process`` path this should not fire;
+        it guards ``run_scanned``, where one chunk can cross capacity before
+        the host compacts.  Warns once per run; one host read."""
+        if self._overflow_warned:
+            return
+        ov = int(self.state.mapping.graph.overflow)
+        if ov:
+            warnings.warn(
+                f"pose-graph hit capacity ({self.cfg.max_keyframes}) inside "
+                f"a batched scan: {ov} keyframes rejected before host-side "
+                "compaction could run; use shorter run_scanned chunks or "
+                "raise cfg.max_keyframes", RuntimeWarning)
+            self._overflow_warned = True
 
     def _maybe_loop(self, frames_advanced: int):
         """Hoisted loop-closure attempt (``loop_in_step=False``): run
@@ -204,10 +270,11 @@ class SlamPipeline:
         self.state = self.state._replace(
             mapping=lm.loop_closure_step(self.state.mapping, cfg)[0])
 
-    def _maybe_compact(self):
-        """Keep-mapping-forever policy: near capacity, thin old keyframes
-        (``laser_mapping.compact_keyframes``) so new territory keeps mapping."""
-        if int(self.state.mapping.graph.count) >= self.cfg.max_keyframes - self._compact_margin:
+    def _maybe_compact(self, margin: int = 16):
+        """Keep-mapping-forever policy: within ``margin`` keyframes of
+        capacity, thin old keyframes (``laser_mapping.compact_keyframes``)
+        so new territory keeps mapping."""
+        if int(self.state.mapping.graph.count) >= self.cfg.max_keyframes - margin:
             self.state = self.state._replace(
                 mapping=lm.compact_keyframes(self.state.mapping, self.cfg))
             self.compactions += 1
@@ -218,9 +285,36 @@ class SlamPipeline:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
+    # ---- IMU and odometry input (LO.cpp:737-795, 840-881) ----
+    def add_imu(self, t: float, rpy, lin_acc):
+        """Feed one IMU sample (the /imu/data handler, LO.cpp:840-881).
+        Samples queue on the host and are integrated, in one copy to the
+        device, before the next ``process`` or ``run_scanned``."""
+        self._imu_pending.append(np.concatenate([
+            [t], np.asarray(rpy, np.float32).reshape(3),
+            np.asarray(lin_acc, np.float32).reshape(3)]).astype(np.float32))
+
+    def _flush_imu(self):
+        rows = self._to_device(np.stack(self._imu_pending), self._dtype)
+        self._imu_pending = []
+        self.state = self.state._replace(imu=deskew.integrate_imu_chunk(
+            self.state.imu, rows[:, 0], rows[:, 1:4], rows[:, 4:7], rows.shape[0]))
+
+    def add_odom(self, t: float, rpy, pos, velo=(0.0, 0.0, 0.0)):
+        """Feed one external-odometry sample (the ``use_odom`` input path,
+        LO.cpp:737-795): the pose comes from the message, not integrated."""
+        row = self._to_device(np.concatenate([[t], np.reshape(rpy, 3), np.reshape(pos, 3),
+                                              np.reshape(velo, 3)]).astype(np.float32),
+                              self._dtype)
+        self.state = self.state._replace(imu=deskew.integrate_odom(
+            self.state.imu, row[0], row[1:4], row[4:7], row[7:10]))
+
+    # ---- frames ----
     def process(self, points: np.ndarray, mask: np.ndarray,
                 time: Optional[float] = None) -> torch.Tensor:
         """Feed one scan; returns the map-frame pose [4, 4] on the device."""
+        if self._imu_pending:
+            self._flush_imu()
         t = self._frame * self.cfg.scan_period if time is None else time
         do_map = self._frame % self.cfg.map_frame_decimation == 0
         do_loop = self._frame % self.cfg.loop_every_n_frames == 0
@@ -232,14 +326,56 @@ class SlamPipeline:
         self._frame += 1
         self._maybe_loop(1)
         self.poses.append(pose)
+        if self._collect_odom:
+            self.odom_poses.append(self.state.T_odom2laser.cpu().numpy())
         if self._frame % self._sync_every == 0:
             self._maybe_compact()
+        if self._frame % self._overflow_every == 0:
+            self._check_overflow()
         return pose
 
     def run(self, points_seq: np.ndarray, mask_seq: np.ndarray) -> np.ndarray:
         for k in range(points_seq.shape[0]):
             self.process(points_seq[k], mask_seq[k])
         return torch.stack(self.poses).cpu().numpy()
+
+    def run_scanned(self, points_seq: np.ndarray, mask_seq: np.ndarray,
+                    times: Optional[np.ndarray] = None) -> np.ndarray:
+        """Feed a chunk of scans: the reference's batch path (``lax.scan``
+        over the chunk in one device call) and the CLI's streaming path.
+        Here a host loop over the chunk's frames, each through ``slam_step``
+        with the mapping and in-step loop gates taken from the frame phase
+        the host knows; the chunk's scans and stamps go to the device in one
+        copy each.  ``times``: the scans' stamps (bag replay), by default
+        the frame clock.  After the chunk: exactly one hoisted loop attempt
+        if it crossed a ``loop_every_n_frames`` boundary, compaction with a
+        margin of at least the chunk, the overflow check.  Returns the
+        chunk's poses [n, 4, 4] as numpy (one host read)."""
+        if self._imu_pending:
+            self._flush_imu()
+        cfg = self.cfg
+        n = points_seq.shape[0]
+        if times is None:
+            times = (np.arange(self._frame, self._frame + n, dtype=np.float32)
+                     * np.float32(cfg.scan_period))
+        pts = self._to_device(np.asarray(points_seq), self._dtype)
+        msk = self._to_device(np.asarray(mask_seq), torch.bool)
+        ts = self._to_device(np.asarray(times, np.float32), self._dtype)
+        out = []
+        for i in range(n):
+            f = self._frame + i
+            self.state, pose = slam_step(
+                self.state, pts[i], msk[i], ts[i], cfg,
+                do_map_static=f % cfg.map_frame_decimation == 0,
+                do_loop_static=f % cfg.loop_every_n_frames == 0)
+            out.append(pose)
+        self._frame += n
+        self._maybe_loop(n)
+        self.poses.extend(out)
+        # a whole chunk can land between capacity checks: margin >= chunk
+        self._maybe_compact(margin=max(16, n))
+        self._check_overflow()
+        return torch.stack(out).cpu().numpy()
 
     def export_map(self):
         """The global map from the keyframes (the /save_map service,
@@ -257,3 +393,34 @@ class SlamPipeline:
             out[name] = (np.concatenate(clouds, 0) if clouds
                          else np.zeros((0, 3), np.float32))
         return out
+
+    # ---- checkpoint and resume (the reference's npz layout) ----
+    def _state_schema(self) -> str:
+        """The state's layout: each leaf's field path, shape and dtype.
+        Leaves are stored by position, so any change of structure or
+        capacity would misassign arrays without this check."""
+        return ";".join(f"{p}:{tuple(t.shape)}:{str(t.dtype).replace('torch.', '')}"
+                        for p, t in _flatten(self.state))
+
+    def save_checkpoint(self, path: str):
+        """The state's leaves as ``arr_0..`` (field order, depth first, as
+        the reference stores its pytree leaves), the frame counter and the
+        schema, in one npz."""
+        np.savez(path, *[t.cpu().numpy() for _, t in _flatten(self.state)],
+                 frame=self._frame, schema=np.asarray(self._state_schema()))
+
+    def load_checkpoint(self, path: str):
+        """Restore a checkpoint onto this pipeline's device; a checkpoint of
+        another layout raises ``ValueError``."""
+        with np.load(path) as data:
+            if "schema" in data.files and str(data["schema"]) != self._state_schema():
+                raise ValueError(
+                    f"checkpoint {path} was written by an incompatible "
+                    "pipeline state layout (different code version or "
+                    "config capacities); re-run from the source data")
+            n = len(_flatten(self.state))
+            leaves = [torch.from_numpy(np.array(data[f"arr_{i}"])).to(self.device)
+                      for i in range(n)]
+            frame = int(data["frame"])
+        self.state = _unflatten(self.state, leaves)
+        self._frame = frame

@@ -1,5 +1,5 @@
 """SO(3)/SE(3) utilities (batched), the part of ``alego_tpu.ops.se3`` that
-the frame step and loop closure call (``rot_to_quat`` belongs to the CLI).
+the frame step, loop closure and the CLI's TUM output call.
 
 Conventions match the reference: rotations compose as
 ``Rz(yaw) @ Ry(pitch) @ Rx(roll)``, pose params are the Ceres block layout
@@ -38,6 +38,44 @@ def yaw_to_rot(yaw: torch.Tensor) -> torch.Tensor:
     """Pure z-axis rotation; odometry integrates yaw only (LO.cpp:581)."""
     zeros = torch.zeros_like(yaw)
     return rpy_to_rot(torch.stack([zeros, zeros, yaw], -1))
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion [w, x, y, z], branch-free: four
+    candidate constructions, the one with the largest pivot of
+    ``[tr, m00, m11, m22]`` kept (the first on ties, as ``argmax`` gives)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def pivot(v):
+        return torch.sqrt(torch.clamp(v, min=1e-12)) / 2
+
+    qw0 = pivot(1.0 + tr)
+    q0 = torch.stack([qw0, (m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0),
+                      (m10 - m01) / (4 * qw0)], -1)
+    qx1 = pivot(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([(m21 - m12) / (4 * qx1), qx1, (m01 + m10) / (4 * qx1),
+                      (m02 + m20) / (4 * qx1)], -1)
+    qy2 = pivot(1.0 - m00 + m11 - m22)
+    q2 = torch.stack([(m02 - m20) / (4 * qy2), (m01 + m10) / (4 * qy2), qy2,
+                      (m12 + m21) / (4 * qy2)], -1)
+    qz3 = pivot(1.0 - m00 - m11 + m22)
+    q3 = torch.stack([(m10 - m01) / (4 * qz3), (m02 + m20) / (4 * qz3),
+                      (m12 + m21) / (4 * qz3), qz3], -1)
+    cands = torch.stack([q0, q1, q2, q3], -2)
+    idx = torch.argmax(torch.stack([tr, m00, m11, m22], -1), -1)
+    q = torch.gather(cands, -2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    row0 = torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1)
+    row1 = torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1)
+    row2 = torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1)
+    return torch.stack([row0, row1, row2], -2)
 
 
 def params_to_mat(params: torch.Tensor) -> torch.Tensor:

@@ -279,6 +279,42 @@ def render_sequence_skewed(world: World, poses: np.ndarray,
     return out, msk
 
 
+def imu_stream(poses: np.ndarray, scan_period: float, hz: float = 40.0,
+               rpy_noise: float = 0.0, acc_noise: float = 0.0, seed: int = 0):
+    """An IMU stream along ``poses`` (frame k at ``k * scan_period``) as a
+    body-mounted unit records it, after benchmarks/validate_simlidar.py's
+    ``synth_imu``: orientation (roll, pitch, yaw; yaw wrapped to (-pi, pi]
+    as a quaternion source gives it) and body-frame specific force including
+    gravity, plus Gaussian noise of the given sigmas (rad, m/s^2) from
+    ``seed``.  Between frames the pose is interpolated as
+    :func:`render_scan_skewed` sweeps it (translation lerp, yaw slerp), and
+    the stream runs to the end of the last frame's sweep (which holds the
+    last pose).  Returns [(t, rpy [3], acc [3]), ...]."""
+    n = poses.shape[0]
+    dt = 1.0 / hz
+    t = np.arange(int(round(n * scan_period * hz)) + 1) * dt
+    pos = np.zeros((len(t), 3))
+    yaw = np.zeros(len(t))
+    for i, ti in enumerate(t):
+        k = min(int(np.floor(ti / scan_period + 1e-9)), n - 1)
+        a = min(ti / scan_period - k, 1.0)
+        T = _interp_pose(poses[k], poses[min(k + 1, n - 1)], a)
+        pos[i] = T[:3, 3]
+        yaw[i] = np.arctan2(T[1, 0], T[0, 0])
+    yaw = np.unwrap(yaw)
+    acc_w = np.gradient(np.gradient(pos, dt, axis=0), dt, axis=0)
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(len(t)):
+        cy, sy = np.cos(yaw[i]), np.sin(yaw[i])
+        Rz = np.array([[cy, -sy, 0.0], [sy, cy, 0.0], [0.0, 0.0, 1.0]])
+        acc_b = Rz.T @ acc_w[i] + [0.0, 0.0, 9.81] + rng.normal(0, acc_noise, 3)
+        rpy = np.array([0.0, 0.0, yaw[i]]) + rng.normal(0, rpy_noise, 3)
+        rpy[2] = (rpy[2] + np.pi) % (2 * np.pi) - np.pi
+        out.append((float(t[i]), rpy, acc_b))
+    return out
+
+
 def render_sequence(world: World, poses: np.ndarray, cfg: PipelineConfig,
                     noise: float = 0.0, seed: int = 0):
     """Render all frames; returns (points [N, P, 3], mask [N, P]) padded arrays."""

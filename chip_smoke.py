@@ -35,7 +35,23 @@ phase prints its seconds):
    CPU (the CPU path is what the tests hold against the JAX reference), and
    tiny-config ``loop_closure_step`` on the card against the CPU on the loop
    scene of the tests, from identity and through the bird's-eye-view rescue;
-7. a few frames with ``loop_in_step=True`` (the attempt inside the step).
+7. a few frames with ``loop_in_step=True`` (the attempt inside the step);
+8. the radius-mode local map (``loop_closure_enabled=False``): the first 32
+   frames through ``run_scanned`` in two chunks of 16, launch counts and the
+   ATE held, and the host synchronisations per frame against the main
+   path's config under ``torch.profiler`` (radius mode rebuilds the map on
+   every mapping frame without reading ``map_dirty``);
+9. de-skew at tiny size, card against CPU, with an IMU stream and with
+   odometry (``add_odom``), and a checkpoint saved, loaded and continued on
+   the card;
+10. the bag replay as a user runs it: the whole circuit rendered with each
+   sweep's motion and a 40 Hz IMU stream along the same poses, written to a
+   ROS bag and replayed through ``alego_tpu_torch.cli.main(["--bag", ...,
+   "--use-imu", "--save-map", ...])`` (``PipelineConfig()`` with
+   ``use_imu``, hoisted loop attempts, chunks of 16), counted and timed;
+   frames, IMU messages, launches, keyframes, loops and their pairs, and the
+   ATE of its TUM trajectory held at the card's answer, beside the ATE of
+   the same frames without de-skew through ``run_scanned``.
 
 The last lines of standard output are the card's ``nvidia-smi`` name and
 power limit, one JSON object with a row per kernel, and
@@ -73,6 +89,20 @@ LOOP_PAIRS = [(87, 0), (89, 0), (92, 0), (94, 0)]
 LOOP_ATTEMPTS = 4
 LOOP_ATE_M, LOOP_KF_ATE_M, LOOP_ATE_TOL_M = 0.32287, 0.39098, 1e-3
 N_IN_STEP = 6          # frames of the loop_in_step=True run
+# the radius-mode run over the first N_FRAMES frames (two chunks of 16): its
+# unaligned ATE, held like the main path's.  It equals ATE_M: all of those
+# keyframes lie within the search radius, and the port's f64 voxel sums do
+# not depend on the order in which the selection merges them
+RADIUS_ATE_M = 0.120703
+# the bag replay: a 40 Hz IMU along the circuit's poses with the noise of
+# benchmarks/validate_simlidar.py's synth_imu (orientation sigma 0.3 deg,
+# specific force sigma 0.05 m/s^2), from this seed
+IMU_HZ, IMU_RPY_SIGMA, IMU_ACC_SIGMA, IMU_SEED = 40, float(np.radians(0.3)), 0.05, 7
+# the replay's answer on the card (runs repeat it): loop factors, and the
+# unaligned ATE (m) of the CLI's TUM trajectory with de-skew and of the same
+# skewed frames through run_scanned without it
+DESKEW_PAIRS = [(95, 0)]
+DESKEW_ATE_M, NO_DESKEW_ATE_M, DESKEW_ATE_TOL_M = 0.67855, 0.94204, 1e-3
 # timing: the median over *_WINDOWS windows of *_REPS back-to-back calls
 KERNEL_WINDOWS, KERNEL_REPS = 21, 5
 PLAIN_WINDOWS, PLAIN_REPS = 3, 1
@@ -650,6 +680,274 @@ def phase_in_step(cfg, pts, mask):
     return dt
 
 
+def render_skewed(cfg, n_frames):
+    """The bench circuit of :func:`render` rendered with each sweep's motion
+    (frame k sweeps from pose k to pose k + 1), and its IMU stream."""
+    from alego_tpu_torch.utils import synthetic
+    poses = synthetic.loop_trajectory(N_CIRCUIT, radius=30.0, speed=1.6, closed=True)
+    world = synthetic.make_world(seed=100, clear_path=poses[:, :2, 3])
+    t0 = time.time()
+    pts, mask = synthetic.render_sequence_skewed(world, poses[:n_frames], cfg,
+                                                 noise=0.01, seed=0)
+    imu = synthetic.imu_stream(poses[:n_frames], cfg.scan_period, hz=IMU_HZ,
+                               rpy_noise=IMU_RPY_SIGMA, acc_noise=IMU_ACC_SIGMA,
+                               seed=IMU_SEED)
+    log(f"rendered {n_frames} skewed frames and {len(imu)} IMU samples in "
+        f"{time.time() - t0:.1f} s")
+    return poses[:n_frames], pts, mask, imu
+
+
+def _host_syncs(cfg, pts, mask):
+    """Host synchronisations of ``run_scanned`` over the frames from a fresh
+    pipeline, under ``torch.profiler``: the runtime calls that block the
+    host, as tools/profile_step.py counts them (read from the raw trace,
+    which is ~40x quicker than ``prof.events()``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from alego_tpu_torch.models.pipeline import SlamPipeline
+
+    sync_calls = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                  "cudaEventSynchronize", "cudaMemcpy")
+    pipe = SlamPipeline(cfg, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe.run_scanned(pts, mask)
+    return sum(1 for ev in prof.profiler.kineto_results.events() if ev.name() in sync_calls)
+
+
+def phase_radius_path(cfg, gt, pts, mask):
+    """``loop_closure_enabled=False``: the local map is the K nearest
+    keyframes within the search radius, rebuilt on every mapping frame.
+    Two chunks of 16 through ``run_scanned``, counted (counts set to 0 just
+    before) and timed; then host synchronisations per frame of the radius
+    and the main-path config over the first 2 frames (one mapping frame)."""
+    import torch
+    from alego_tpu_torch import kernels
+    from alego_tpu_torch.models.pipeline import SlamPipeline
+    from alego_tpu_torch.utils.metrics import ate_rmse
+
+    cfg_r = cfg.replace(loop_closure_enabled=False)
+    n = pts.shape[0]
+    pipe = SlamPipeline(cfg_r, device="cuda")
+    kernels.LAUNCHES.clear()
+    t0 = time.time()
+    est = np.concatenate([pipe.run_scanned(pts[i:i + 16], mask[i:i + 16])
+                          for i in range(0, n, 16)])
+    total_s = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_map = -(-n // cfg.map_frame_decimation)
+    expected = {"ccl": n, "nn1": 2 * max(cfg.odom_outer_iters, 1) * n,
+                "knn": 2 * cfg.map_outer_iters * n_map}
+    assert np.isfinite(est).all(), "non-finite pose"
+    ate = ate_rmse(est[:, :3, 3], gt[:, :3, 3], align=False)
+    m = 2
+    syncs = {"radius": _host_syncs(cfg_r, pts[:m], mask[:m]),
+             "main_path": _host_syncs(cfg, pts[:m], mask[:m])}
+    res = dict(frames=n, ms_per_frame=total_s / n * 1e3, ate_m=ate,
+               keyframes=int(pipe.state.mapping.graph.count), launches=launches,
+               host_syncs_per_frame={k: v / m for k, v in syncs.items()})
+    log(f"radius path: {json.dumps(res)}")
+    assert launches == expected, f"launch counts {launches} != {expected}"
+    # the main path reads map_dirty once per mapping frame; radius mode
+    # rebuilds without that read, and the two are otherwise the same
+    n_map_m = -(-m // cfg.map_frame_decimation)
+    assert syncs["radius"] > 0 and syncs["main_path"] - syncs["radius"] == n_map_m, syncs
+    assert abs(ate - RADIUS_ATE_M) <= ATE_TOL_M, f"ATE {ate:.6f} m moved from {RADIUS_ATE_M} m"
+    return res
+
+
+def _odom_feed(poses, imu, scan_period):
+    """The odometry samples of the tiny de-skew runs: at the IMU's stamps,
+    the IMU's orientation with the interpolated ground-truth position and
+    the frame's velocity."""
+    out = []
+    for t, rpy, _ in imu:
+        k = min(int(t / scan_period + 1e-9), len(poses) - 1)
+        k1 = min(k + 1, len(poses) - 1)
+        a = min(t / scan_period - k, 1.0)
+        pos = (1 - a) * poses[k][:3, 3] + a * poses[k1][:3, 3]
+        out.append((t, rpy, pos, (poses[k1][:3, 3] - poses[k][:3, 3]) / scan_period))
+    return out
+
+
+def phase_deskew_cpu_agreement():
+    """Tiny config, 6 skewed frames: de-skew on the card against the CPU
+    with an IMU stream, then with odometry through ``add_odom``; then a
+    checkpoint on the card, saved after 3 frames, loaded into a fresh
+    pipeline and continued, against the uninterrupted run."""
+    import torch
+    from alego_tpu_torch import tiny_config
+    from alego_tpu_torch.models.pipeline import SlamPipeline
+    from alego_tpu_torch.utils import synthetic
+
+    cfg = tiny_config().replace(use_imu=True, loop_closure_enabled=False)
+    world = synthetic.make_world(seed=3)
+    poses = synthetic.loop_trajectory(6, radius=20.0, speed=1.0, closed=False)
+    pts, mask = synthetic.render_sequence_skewed(world, poses, cfg, noise=0.01)
+    imu = synthetic.imu_stream(poses, cfg.scan_period, hz=IMU_HZ, rpy_noise=IMU_RPY_SIGMA,
+                               acc_noise=IMU_ACC_SIGMA, seed=IMU_SEED)
+    odom = _odom_feed(poses, imu, cfg.scan_period)
+
+    def imu_pipe(dev, c=cfg):
+        pipe = SlamPipeline(c, device=dev)
+        for t, rpy, acc in imu:
+            pipe.add_imu(t, rpy, acc)
+        return pipe
+
+    def odom_pipe(dev):
+        pipe = SlamPipeline(cfg.replace(use_imu=False, use_odom=True), device=dev)
+        for t, rpy, pos, velo in odom:
+            pipe.add_odom(t, rpy, pos, velo)
+        return pipe
+
+    worst = {}
+    for what, make in (("imu", imu_pipe), ("odom", odom_pipe)):
+        gpu, cpu = make("cuda"), make("cpu")
+        est_g, est_c = gpu.run(pts, mask), cpu.run(pts, mask)
+        dt = float(np.abs(est_g[:, :3, 3] - est_c[:, :3, 3]).max())
+        dr = float(np.abs(est_g[:, :3, :3] - est_c[:, :3, :3]).max())
+        n_buf = int(gpu.state.imu.count)
+        log(f"tiny de-skew ({what}), 6 frames, card vs CPU: max |dt| {dt:.3e} m, "
+            f"max |dR| {dr:.3e}, buffer count {n_buf}")
+        assert n_buf == int(cpu.state.imu.count) == len(imu), "samples lost"
+        assert dt < 1e-4 and dr < 1e-5, f"card and CPU disagree ({what})"
+        worst[what] = dt
+
+    with __import__("tempfile").TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "state.npz")
+        full = imu_pipe("cuda")
+        for k in range(6):
+            if k == 3:
+                full.save_checkpoint(ck)
+            full.process(pts[k], mask[k])
+        est_full = torch.stack(full.poses).cpu().numpy()
+        resumed = SlamPipeline(cfg, device="cuda")
+        resumed.load_checkpoint(ck)
+        est_res = resumed.run(pts[3:], mask[3:])
+    d_ck = float(np.abs(est_res[:, :3, 3] - est_full[3:, :3, 3]).max())
+    kf = (int(resumed.state.mapping.graph.count), int(full.state.mapping.graph.count))
+    log(f"checkpoint after 3 frames, resumed on the card: max |dt| {d_ck:.3e} m "
+        f"against the uninterrupted run, keyframes {kf}")
+    assert d_ck <= 1e-6 and kf[0] == kf[1], "the resumed run differs"
+    worst["checkpoint"] = d_ck
+    return worst
+
+
+def phase_deskew_path(cfg, gt, pts, mask, imu):
+    """The bag replay as a user runs it, then the same frames without
+    de-skew through ``run_scanned`` (chunks of 16, the scans' stamps)."""
+    import tempfile
+    import torch
+    from alego_tpu_torch import cli, kernels, PipelineConfig
+    from alego_tpu_torch.models.image_projection import image_projection
+    from alego_tpu_torch.models.pipeline import SlamPipeline
+    from alego_tpu_torch.ops import deskew
+    from alego_tpu_torch.utils import profiling, rosbag
+    from alego_tpu_torch.utils.metrics import ate_rmse
+
+    n = pts.shape[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        bag, out = os.path.join(tmp, "circuit.bag"), os.path.join(tmp, "out")
+        t0 = time.time()
+        rosbag.write_bag_pointclouds(
+            bag, [(k * cfg.scan_period, pts[k][mask[k]]) for k in range(n)], imu=imu)
+        log(f"bag of {n} clouds and {len(imu)} IMU messages, "
+            f"{os.path.getsize(bag) / 2 ** 20:.1f} MiB, written in {time.time() - t0:.1f} s")
+        # the CLI's own stage timer, kept to read its slam_chunk time
+        timers, real_timer = [], profiling.StageTimer
+
+        class Recording(real_timer):
+            def __init__(self):
+                super().__init__()
+                timers.append(self)
+
+        profiling.StageTimer = Recording
+        try:
+            torch.cuda.synchronize()
+            kernels.LAUNCHES.clear()
+            t0 = time.time()
+            rc = cli.main(["--bag", bag, "--use-imu", "--save-map", "--output", out])
+            torch.cuda.synchronize()
+            total_s = time.time() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            profiling.StageTimer = real_timer
+        assert rc == 0, f"the replay returned {rc}"
+        timer = timers[-1]
+        tum = np.loadtxt(os.path.join(out, "trajectory_tum.txt"))
+        cfg_imu = PipelineConfig().replace(use_imu=True, loop_in_step=False)
+        pipe = SlamPipeline(cfg_imu, device="cuda")
+        pipe.load_checkpoint(os.path.join(out, "state.npz"))
+        assert os.path.exists(os.path.join(out, "map", "surf.pcd")), "no map written"
+
+    g = pipe.state.mapping.graph
+    n_loops = int(g.loop_count)
+    pairs = [(int(i), int(j)) for i, j in zip(g.loop_i[:n_loops].tolist(),
+                                             g.loop_j[:n_loops].tolist())]
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    ate = ate_rmse(tum[:, 1:4], gt_rel[:len(tum), :3, 3], align=False)
+
+    # de-skew moved the points: a late frame (its IMU still in the ring)
+    # through the frame's projection and the replay's final buffer
+    k = n - 8
+    seg = image_projection(torch.as_tensor(pts[k], device="cuda"),
+                           torch.as_tensor(mask[k], device="cuda"), cfg_imu)
+    moved = deskew.deskew(seg.points, seg.cols, seg.valid,
+                          torch.full((), k * cfg.scan_period, device="cuda"), pipe.state.imu,
+                          cfg_imu, orient_start=seg.orient_start, orient_diff=seg.orient_diff)
+    shift = float((moved - seg.points).abs().max())
+    # what de-skew adds to a frame, on the card (CUDA events, as the kernel
+    # rows): the two de-skew calls, and the integration of one frame's IMU
+    # samples (scan_period * IMU_HZ of them)
+    t_k = torch.full((), k * cfg.scan_period, device="cuda")
+    deskew_ms = _median_ms(lambda: (
+        deskew.deskew(seg.points, seg.cols, seg.valid, t_k, pipe.state.imu, cfg_imu,
+                      orient_start=seg.orient_start, orient_diff=seg.orient_diff),
+        deskew.deskew(seg.outlier_points, seg.outlier_cols, seg.outlier_valid, t_k,
+                      pipe.state.imu, cfg_imu, orient_start=seg.orient_start,
+                      orient_diff=seg.orient_diff)))
+    per_frame = int(round(cfg.scan_period * IMU_HZ))
+    rows = torch.as_tensor(np.array([[t, *r, *a] for t, r, a in imu[:per_frame]],
+                                    np.float32), device="cuda")
+    imu_ms = _median_ms(lambda: deskew.integrate_imu_chunk(
+        pipe.state.imu, rows[:, 0], rows[:, 1:4], rows[:, 4:7], per_frame))
+
+    plain = SlamPipeline(cfg, device="cuda")
+    times = np.arange(n, dtype=np.float32) * np.float32(cfg.scan_period)
+    t0 = time.time()
+    est = np.concatenate([plain.run_scanned(pts[i:i + 16], mask[i:i + 16], times=times[i:i + 16])
+                          for i in range(0, n, 16)])
+    plain_s = time.time() - t0
+    ate_plain = ate_rmse(est[:, :3, 3], gt_rel[:, :3, 3], align=False)
+
+    n_map = -(-n // cfg.map_frame_decimation)
+    chunk_ms = timer.totals["slam_chunk"]
+    res = dict(frames=n, imu_messages=len(imu), tum_rows=int(len(tum)), seconds=total_s,
+               slam_chunk_ms=chunk_ms, slam_chunks=timer.counts["slam_chunk"],
+               ms_per_frame=chunk_ms / n, launches=launches,
+               keyframes=int(g.count), loops=n_loops, loop_pairs=pairs,
+               attempts=int(pipe.state.mapping.loop_attempts), overflow=int(g.overflow),
+               loop_overflow=int(g.loop_overflow), imu_count=int(pipe.state.imu.count),
+               ate_m=ate, no_deskew_ate_m=ate_plain, no_deskew_ms_per_frame=plain_s / n * 1e3,
+               no_deskew_loops=int(plain.state.mapping.graph.loop_count),
+               deskew_max_shift_m=shift, deskew_calls_ms_per_frame=deskew_ms,
+               imu_integration_ms_per_frame=imu_ms)
+    log(f"deskew path: {json.dumps(res)}")
+    assert launches["ccl"] == n, f"ccl launches {launches['ccl']} != {n}"
+    assert launches["nn1"] >= 2 * max(cfg.odom_outer_iters, 1) * n, launches
+    assert launches["knn"] >= 2 * n_map, launches
+    assert res["imu_count"] == len(imu), "IMU samples lost"
+    assert shift > 1e-3, "de-skew moved no point"
+    assert res["overflow"] == 0 and res["loop_overflow"] == 0, "capacity reached"
+    assert res["tum_rows"] == n, "TUM rows != frames"
+    assert np.isfinite(tum).all() and np.isfinite(est).all(), "non-finite pose"
+    assert pairs == DESKEW_PAIRS, f"loop pairs {pairs} != {DESKEW_PAIRS}"
+    assert abs(ate - DESKEW_ATE_M) <= DESKEW_ATE_TOL_M and \
+        abs(ate_plain - NO_DESKEW_ATE_M) <= DESKEW_ATE_TOL_M, \
+        f"ATE {ate:.5f} / {ate_plain:.5f} m moved from {DESKEW_ATE_M} / {NO_DESKEW_ATE_M} m"
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -685,6 +983,13 @@ def main():
     phase("cpu_agreement", phase_cpu_agreement)
     phase("loop_cpu_agreement", phase_loop_cpu_agreement)
     phase("in_step", phase_in_step, cfg, pts, mask)
+    radius = phase("radius_path", phase_radius_path, cfg, gt[:N_FRAMES], pts[:N_FRAMES],
+                   mask[:N_FRAMES])
+    phase("deskew_cpu_agreement", phase_deskew_cpu_agreement)
+    del pts, mask          # the skewed frames take their place in host memory
+    gt_s, pts_s, mask_s, imu = phase("render_skewed", render_skewed, cfg, N_CIRCUIT)
+    replay = phase("deskew_path", phase_deskew_path, cfg, gt_s, pts_s, mask_s, imu)
+    summary.update(radius_path=radius, deskew_path=replay)
     log(f"summary {json.dumps(summary)}; phase seconds {json.dumps(seconds)}; "
         f"total {time.time() - t_start:.1f} s")
     print(smi)

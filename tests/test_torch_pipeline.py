@@ -149,6 +149,9 @@ def test_port_imports_no_reference():
         "import alego_tpu_torch.utils.metrics, alego_tpu_torch.ops.icp\n"
         "import alego_tpu_torch.ops.bev_align, alego_tpu_torch.ops.chain_solver\n"
         "import alego_tpu_torch.models.pose_graph, alego_tpu_torch.models.laser_mapping\n"
+        "import alego_tpu_torch.cli, alego_tpu_torch.utils.rosbag, alego_tpu_torch.utils.io\n"
+        "import alego_tpu_torch.utils.viewer, alego_tpu_torch.utils.profiling\n"
+        "import alego_tpu_torch.runtime.io_native, alego_tpu_torch.ops.deskew\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'alego_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
@@ -164,7 +167,7 @@ def test_no_silent_cpu(cfg, monkeypatch):
         tpipe.SlamPipeline(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpipe.init_state(cfg)
-    with pytest.raises(NotImplementedError, match="de-skew"):
+    with pytest.raises(NotImplementedError, match="sequential sector picker"):
         tpipe.slam_step(tpipe.init_state(cfg, "cpu"), torch.zeros((8, 3)),
                         torch.zeros(8, dtype=torch.bool), torch.tensor(0.0),
-                        cfg.replace(use_imu=True))
+                        cfg.replace(parallel_sectors=False))
