@@ -13,8 +13,10 @@ by name, prefetched by the native C++ loader); ``--bag`` replays
 PointCloud2 (and, with ``--use-imu``, Imu) messages straight out of a ROS
 bag (utils/rosbag.py, no ROS install).  Outputs: TUM-format trajectory,
 timing report, the /save_map-equivalent PCD map and ``state.npz``.  The run
-is on the GPU unless ``--device cpu`` asks for the CPU; ``--mesh`` (several
-sequences across cards) is not ported yet.
+is on the GPU unless ``--device cpu`` asks for the CPU.  ``--mesh N``
+runs N synthetic sequences at once, one ``SlamPipeline`` lane per rank
+(``parallel.multichip.ShardedSlamPipeline``): over NCCL with one card per
+rank on the GPU, over gloo on the CPU.
 """
 
 from __future__ import annotations
@@ -35,6 +37,49 @@ def _tum_line(t, T):
     q = se3.rot_to_quat(torch.from_numpy(np.ascontiguousarray(T[:3, :3]))).numpy()
     return (f"{t:.6f} {T[0,3]:.6f} {T[1,3]:.6f} {T[2,3]:.6f} "
             f"{q[1]:.6f} {q[2]:.6f} {q[3]:.6f} {q[0]:.6f}")
+
+
+def _run_mesh(args, cfg, ap):
+    """``--mesh B --synthetic n``: B sequences of one circuit through B
+    worlds (world seed 7 + b, noise seed b), one lane per rank; per-lane
+    ATE, keyframe and loop lines and ``trajectory_tum_{b}.txt``."""
+    import tempfile
+    import numpy as np
+    import torch
+    from .parallel import launch, ranks
+    from .utils import synthetic
+    from .utils.metrics import ate_rmse
+
+    B, n = args.mesh, args.synthetic
+    device = torch.device(args.device).type
+    if device == "cuda" and torch.cuda.is_available() and torch.cuda.device_count() < B:
+        ap.error(f"--mesh {B} on the GPU needs {B} cards (one NCCL rank per card), "
+                 f"but {torch.cuda.device_count()} are visible")
+    radius = args.radius or max(4.0, n * 0.25 / (2 * 3.14159))
+    gt = synthetic.loop_trajectory(n, radius=radius, closed=True)
+    seqs, masks = [], []
+    for b in range(B):
+        world = synthetic.make_world(seed=7 + b, clear_path=gt[:, :2, 3])
+        p, m = synthetic.render_sequence(world, gt, cfg, noise=0.01, seed=b)
+        seqs.append(p)
+        masks.append(m)
+    with tempfile.TemporaryDirectory(prefix="alego_mesh_") as tmp:
+        ranks.save_frames(tmp, np.stack(seqs, 1), np.stack(masks, 1))
+        res = launch.launch(ranks.lanes_run, B, cfg, tmp, device=device)
+    traj, wall = res["trajectories"], res["seconds"]
+    print(f"{B} sequences x {n} frames in {wall:.1f}s "
+          f"({B * n / max(wall, 1e-9):.1f} frames/s aggregate)")
+    for b in range(B):
+        ate = ate_rmse(traj[:, b, :3, 3], gt[:, :3, 3], align=False)
+        print(f"  sequence {b}: ATE {ate:.3f} m, "
+              f"keyframes {int(res['keyframes'][b])}, loops {int(res['loops'][b])}")
+    os.makedirs(args.output, exist_ok=True)
+    for b in range(B):
+        with open(os.path.join(args.output, f"trajectory_tum_{b}.txt"), "w") as f:
+            for k in range(traj.shape[0]):
+                f.write(_tum_line(k * cfg.scan_period, traj[k, b]) + "\n")
+    print(f"trajectories -> {args.output}/trajectory_tum_*.txt")
+    return 0
 
 
 def main(argv=None):
@@ -99,16 +144,12 @@ def main(argv=None):
                          "(the 0.2 Hz /laser_cloud_surround publisher, "
                          "LM.cpp:744-777)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="run N concurrent SLAM sequences, one per device "
-                         "(not ported yet: exits with an error)")
+                    help="run N concurrent synthetic SLAM sequences, one rank "
+                         "per sequence (with --device cuda: one card each)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the run (default cuda; cpu runs "
                          "every kernel's plain PyTorch version)")
     args = ap.parse_args(argv)
-
-    if args.mesh:
-        ap.error("--mesh is not ported: it needs alego_tpu_torch.parallel, "
-                 "which is still to be ported (ROADMAP.md §1 item 11)")
 
     import numpy as np
     import torch
@@ -143,6 +184,11 @@ def main(argv=None):
         # hoisted loop mode (see --loop-in-scan): the attempt runs as its
         # own call between chunks
         cfg = cfg.replace(loop_in_step=False)
+
+    if args.mesh:
+        if not args.synthetic:
+            ap.error("--mesh currently requires --synthetic N frames")
+        return _run_mesh(args, cfg, ap)
 
     pipe = SlamPipeline(cfg, device=args.device)
     if args.checkpoint:

@@ -166,10 +166,26 @@ def _downsample_scan(corner_pts, corner_valid, surf_pts, surf_valid,
     return c_ds, c_ok, s_ds, s_ok, o_ds, o_ok, st_ds, st_ok
 
 
+def _local_assoc(sel, ok, map_pts, map_ok, k: int):
+    """The single-device 5-NN association: (d2 [Q, k], neighbours [Q, k, 3])
+    from the k-NN kernel and a gather of the local map."""
+    d, i = knn(sel, ok, map_pts, map_ok, k)
+    return d, map_pts[i.long()]
+
+
 def _scan_to_map(params0, c_ds, c_ok, st_ds, st_ok,
-                 map_c, map_c_ok, map_s, map_s_ok, cfg: PipelineConfig):
-    """scan2MapOptimization (LM.cpp:493-624): association + full-6DoF GN."""
+                 map_c, map_c_ok, map_s, map_s_ok, cfg: PipelineConfig,
+                 assoc=None):
+    """scan2MapOptimization (LM.cpp:493-624): association + full-6DoF GN.
+
+    ``assoc(sel, ok, map_pts, map_ok) -> (d2 [Q, k], nbrs [Q, k, 3])``
+    replaces the single-device search: ``parallel/sharded_mapping`` passes
+    the search over the rank's row shard of the map, whose candidates come
+    back with their coordinates."""
     K = cfg.map_knn
+    if assoc is None:
+        def assoc(sel, ok, map_pts, map_ok):
+            return _local_assoc(sel, ok, map_pts, map_ok, K)
     enough = ((torch.sum(c_ok) >= cfg.min_corner_for_map)
               & (torch.sum(st_ok) >= cfg.min_surf_for_map)
               & (torch.sum(map_c_ok) >= cfg.min_corner_for_map))
@@ -178,8 +194,7 @@ def _scan_to_map(params0, c_ds, c_ok, st_ds, st_ok,
     for _ in range(cfg.map_outer_iters):
         # corner: 5-NN + PCA line test (LM.cpp:516-562)
         sel_c = se3.transform_points(params, c_ds)
-        d_c, i_c = knn(sel_c, c_ok, map_c, map_c_ok, K)
-        nbrs = map_c[i_c.long()]
+        d_c, nbrs = assoc(sel_c, c_ok, map_c, map_c_ok)
         near_c = c_ok & (d_c[:, K - 1] < cfg.map_nn_max_dist_sq)
         center, direction, ev = pca_line_fit(nbrs, torch.ones_like(d_c, dtype=torch.bool))
         is_line = ev[:, 2] > cfg.line_eig_ratio * ev[:, 1]
@@ -189,8 +204,7 @@ def _scan_to_map(params0, c_ds, c_ok, st_ds, st_ok,
 
         # surf: 5-NN + plane fit (LM.cpp:564-607)
         sel_s = se3.transform_points(params, st_ds)
-        d_s, i_s = knn(sel_s, st_ok, map_s, map_s_ok, K)
-        nbrs_s = map_s[i_s.long()]
+        d_s, nbrs_s = assoc(sel_s, st_ok, map_s, map_s_ok)
         near_s = st_ok & (d_s[:, K - 1] < cfg.map_nn_max_dist_sq)
         unit_n, d0, plane_ok = plane_fit(nbrs_s, torch.ones_like(d_s, dtype=torch.bool),
                                          cfg.plane_fit_tol)
@@ -217,16 +231,19 @@ def _write_row(store: torch.Tensor, k: torch.Tensor, write: torch.Tensor,
 def mapping_step(ms: MappingState, T_odom2laser: torch.Tensor,
                  corner_pts, corner_valid, surf_pts, surf_valid,
                  outlier_pts, outlier_valid, time: torch.Tensor,
-                 cfg: PipelineConfig):
+                 cfg: PipelineConfig, assoc=None, read=bool):
     """One mapping frame. Returns (new_state, T_map2laser).  The keyframe
-    store of ``ms`` is written in place."""
+    store of ``ms`` is written in place.
+
+    ``assoc``: the 5-NN association (see :func:`_scan_to_map`); ``read``:
+    how the host reads the rebuild flag (``Comm.read`` on several ranks)."""
     T_pred = ms.T_map2odom @ T_odom2laser
 
     # loop-closure mode: the cached local map is rebuilt only after a
     # keyframe was added, one flag read per mapping frame decides it on the
     # host; radius mode: the surround set follows the predicted pose, so the
     # map is rebuilt on every mapping frame (LM.cpp:452-457), with no read
-    if not cfg.loop_closure_enabled or bool(ms.map_dirty):
+    if not cfg.loop_closure_enabled or read(ms.map_dirty):
         mc, mco, msf, msfo = _build_local_map(ms, cfg, T_pred)
         ms = ms._replace(map_corner=mc, map_corner_valid=mco,
                          map_surf=msf, map_surf_valid=msfo)
@@ -239,7 +256,8 @@ def mapping_step(ms: MappingState, T_odom2laser: torch.Tensor,
     params = torch.where(
         ms.graph.count > 0,
         _scan_to_map(params0, c_ds, c_ok, st_ds, st_ok, ms.map_corner,
-                     ms.map_corner_valid, ms.map_surf, ms.map_surf_valid, cfg),
+                     ms.map_corner_valid, ms.map_surf, ms.map_surf_valid, cfg,
+                     assoc),
         params0)
     T_new = se3.params_to_mat(params)
 
@@ -439,7 +457,7 @@ def _smear(g: pg.PoseGraph, correction, closest, latest):
 
 
 def _close(ms: MappingState, res: ICPResult, weight, closest, latest,
-           cfg: PipelineConfig):
+           cfg: PipelineConfig, solve, energy):
     """Add the loop factor and solve (LM.cpp:862-882).  Returns
     (state, committed) with committed a device bool: the post-solve chain
     bend gate rolls the whole change back on the device, no host read."""
@@ -454,9 +472,8 @@ def _close(ms: MappingState, res: ICPResult, weight, closest, latest,
     # both initialisations, keep the lower-energy solution: the smear suits
     # drift accumulated along the path, the raw poses a discrepancy near
     # the latest node
-    sigma = cfg.pose_graph_chain_sigma
-    g0, g1 = (pg.optimize(x, sigma, iters=cfg.pose_graph_gn_iters) for x in (g_raw, g_sm))
-    g_new = _pick(pg.graph_energy(g1, sigma) < pg.graph_energy(g0, sigma), g1, g0)
+    g0, g1 = solve(g_raw), solve(g_sm)
+    g_new = _pick(energy(g1) < energy(g0), g1, g0)
     # correctPoses map2odom rebase (LM.cpp:725-726); the local map is stale
     new = dict(graph=g_new, T_map2odom=res.transform @ ms.T_map2odom,
                T_map2laser=at(g_new.poses, latest),
@@ -482,10 +499,11 @@ def _close(ms: MappingState, res: ICPResult, weight, closest, latest,
     return ms._replace(**new), committed
 
 
-def _attempt(ms: MappingState, closest, latest, cfg: PipelineConfig):
+def _attempt(ms: MappingState, closest, latest, cfg: PipelineConfig, solve, energy, read):
     """One loop attempt against candidate ``closest``: (state, closed,
-    fitness, inlier_frac).  Host reads: one per ICP iteration, one for the
-    rescue branch (with ``loop_coarse_align``), one for the solve branch."""
+    fitness, inlier_frac).  Host reads (through ``read``): one per ICP
+    iteration, one for the rescue branch (with ``loop_coarse_align``), one
+    for the solve branch."""
     pose_latest = at(ms.graph.poses, latest)
     # raw (unfiltered) source cloud: getFitnessScore averages over raw
     # source points, and the gate is calibrated on them
@@ -497,9 +515,9 @@ def _attempt(ms: MappingState, closest, latest, cfg: PipelineConfig):
     tgt, tgt_ok = _history_cloud(ms, closest, latest, cfg)
 
     res = icp_point_to_point(src_i, src_i_ok, tgt, tgt_ok, cfg.icp_iters,
-                             cfg.icp_max_corr_dist, cfg.icp_translation_eps)
+                             cfg.icp_max_corr_dist, cfg.icp_translation_eps, read=read)
     accept, weight, inlier_frac = _loop_acceptance(res, src, src_ok, tgt, tgt_ok, cfg)
-    if cfg.loop_coarse_align and not bool(accept):
+    if cfg.loop_coarse_align and not read(accept):
         # wide-basin rescue: a bird's-eye structure correlation recovers
         # (yaw, dx, dy, dz) globally, then a short ICP refines
         ba = bev_align(src, src_ok, tgt, tgt_ok, pose_latest[:2, 3],
@@ -508,7 +526,7 @@ def _attempt(ms: MappingState, closest, latest, cfg: PipelineConfig):
         res_b = icp_point_to_point(src_i, src_i_ok, tgt, tgt_ok,
                                    min(cfg.icp_iters, cfg.loop_rescue_icp_iters),
                                    cfg.icp_max_corr_dist, cfg.icp_translation_eps,
-                                   T0=ba.transform)
+                                   T0=ba.transform, read=read)
         res = _pick(res_b.converged & (res_b.fitness < res.fitness), res_b, res)
         accept, weight, inlier_frac = _loop_acceptance(res, src, src_ok, tgt, tgt_ok, cfg)
 
@@ -519,24 +537,41 @@ def _attempt(ms: MappingState, closest, latest, cfg: PipelineConfig):
         disp = torch.linalg.vector_norm((res.transform @ pose_latest)[:3, 3] - pose_latest[:3, 3])
         accept = accept & (disp <= cfg.loop_max_correction_abs
                            + cfg.loop_max_correction_frac * path_cl)
-    if not bool(accept):
+    if not read(accept):
         return ms, accept, res.fitness, inlier_frac
-    ms, committed = _close(ms, res, weight, closest, latest, cfg)
+    ms, committed = _close(ms, res, weight, closest, latest, cfg, solve, energy)
     return ms, committed, res.fitness, inlier_frac
 
 
-def loop_closure_step(ms: MappingState, cfg: PipelineConfig):
+def loop_closure_step(ms: MappingState, cfg: PipelineConfig, graph_optimizer=None,
+                      graph_energy_fn=None, read=bool):
     """performLoopClosure: returns (new_state, closed, fitness).
 
     One host read decides whether an attempt runs (a candidate exists, the
     latest keyframe was not tried yet, and the graph has two nodes); a
-    gated-off call launches nothing."""
+    gated-off call launches nothing.
+
+    ``graph_optimizer(graph) -> graph`` replaces the single-device solve
+    (``parallel/sharded_mapping`` passes the distributed Schur solver);
+    ``graph_energy_fn(graph) -> scalar`` is the objective that picks
+    between the two initialisations, by default the single-device one at
+    ``cfg.pose_graph_chain_sigma``, which the Schur solver minimises too.
+    ``read(flag) -> bool`` is how the host reads each device flag it
+    branches on (``Comm.read`` on several ranks)."""
+    sigma = cfg.pose_graph_chain_sigma
+    if graph_optimizer is None:
+        def graph_optimizer(g):
+            return pg.optimize(g, sigma, iters=cfg.pose_graph_gn_iters)
+    if graph_energy_fn is None:
+        def graph_energy_fn(g):
+            return pg.graph_energy(g, sigma)
     found, closest, latest = detect_loop(ms, cfg)
     do = found & (latest != ms.last_loop_kf) & (ms.graph.count > 1)
-    if not bool(do):
+    if not read(do):
         return (ms, torch.zeros_like(do),
                 torch.full((), 1e9, dtype=ms.T_map2odom.dtype, device=do.device))
-    ms, closed, fitness, inlier = _attempt(ms, closest, latest, cfg)
+    ms, closed, fitness, inlier = _attempt(ms, closest, latest, cfg, graph_optimizer,
+                                           graph_energy_fn, read)
     ms = ms._replace(
         last_loop_kf=latest.to(torch.int32),
         loop_attempts=ms.loop_attempts + 1,

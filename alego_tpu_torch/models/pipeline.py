@@ -57,15 +57,12 @@ def init_state(cfg: PipelineConfig, device=None, dtype=torch.float32) -> SlamSta
     )
 
 
-def slam_step(state: SlamState, points: torch.Tensor, mask: torch.Tensor,
-              time: torch.Tensor, cfg: PipelineConfig, do_map_static=None,
-              do_loop_static=None):
-    """Process one raw scan. Returns (state, T_map2laser).
-
-    ``do_map_static``: the every-2nd-frame mapping gate (LM.cpp:244-245) as
-    a host bool; ``do_loop_static``: the ``loop_every_n_frames`` cadence of
-    the in-step loop attempt (``loop_in_step=True``) as a host bool.  For
-    either, ``None`` reads ``state.frame`` from the device."""
+def front_step(state: SlamState, points: torch.Tensor, mask: torch.Tensor,
+               time: torch.Tensor, cfg: PipelineConfig):
+    """The frame step's front half, everything before the map state:
+    projection and segmentation, de-skew (``use_imu`` / ``use_odom``),
+    features and odometry.  Returns (odo_state, T_odom2laser, features,
+    segmented scan)."""
     seg = image_projection(points, mask, cfg)
     # de-skew the segmented cloud (LO.cpp:184; the odometry-aided variant
     # LO.cpp:737-795 shares the buffer and the interpolation); the outlier
@@ -81,6 +78,21 @@ def slam_step(state: SlamState, points: torch.Tensor, mask: torch.Tensor,
         seg = seg._replace(points=pts_ds, outlier_points=out_ds)
     fc = extract_features(seg, cfg)
     odo, T_odom2laser = lo.odometry_step(state.odo, fc, cfg)
+    return odo, T_odom2laser, fc, seg
+
+
+def slam_step(state: SlamState, points: torch.Tensor, mask: torch.Tensor,
+              time: torch.Tensor, cfg: PipelineConfig, do_map_static=None,
+              do_loop_static=None, assoc=None, graph_optimizer=None, read=bool):
+    """Process one raw scan. Returns (state, T_map2laser).
+
+    ``do_map_static``: the every-2nd-frame mapping gate (LM.cpp:244-245) as
+    a host bool; ``do_loop_static``: the ``loop_every_n_frames`` cadence of
+    the in-step loop attempt (``loop_in_step=True``) as a host bool.  For
+    either, ``None`` reads ``state.frame`` from the device.  ``assoc``,
+    ``graph_optimizer`` and ``read`` go to ``mapping_step`` and
+    ``loop_closure_step`` (the distributed pipeline's hooks)."""
+    odo, T_odom2laser, fc, seg = front_step(state, points, mask, time, cfg)
 
     if do_map_static is None:
         do_map_static = int(state.frame) % cfg.map_frame_decimation == 0
@@ -90,7 +102,8 @@ def slam_step(state: SlamState, points: torch.Tensor, mask: torch.Tensor,
             mapping, T_odom2laser,
             fc.less_sharp_pts, fc.less_sharp_valid,
             fc.less_flat_pts, fc.less_flat_valid,
-            seg.outlier_points, seg.outlier_valid, time, cfg)
+            seg.outlier_points, seg.outlier_valid, time, cfg,
+            assoc=assoc, read=read)
 
     # the loop attempt on a time cadence, the reference's 1 Hz thread
     # (LM.cpp:779-794); loop_closure_step itself reads whether a candidate
@@ -99,7 +112,8 @@ def slam_step(state: SlamState, points: torch.Tensor, mask: torch.Tensor,
         if do_loop_static is None:
             do_loop_static = int(state.frame) % cfg.loop_every_n_frames == 0
         if do_loop_static:
-            mapping = lm.loop_closure_step(mapping, cfg)[0]
+            mapping = lm.loop_closure_step(mapping, cfg, graph_optimizer=graph_optimizer,
+                                           read=read)[0]
 
     T_map2laser = mapping.T_map2odom @ T_odom2laser
     new_state = SlamState(odo=odo, mapping=mapping, frame=state.frame + 1,
@@ -212,6 +226,12 @@ class SlamPipeline:
 
     _sync_every = 16       # frames between capacity checks (one host read)
     _overflow_every = 128  # frames between overflow checks on ``process``
+    # the distributed pipeline's hooks (parallel/distributed.py): the map
+    # association, the pose-graph solve, and how the host reads the device
+    # flags it branches on
+    _assoc = None
+    _graph_optimizer = None
+    _read = bool
 
     def __init__(self, cfg: PipelineConfig, device=None, dtype=torch.float32,
                  collect_odom_poses: bool = False):
@@ -231,6 +251,10 @@ class SlamPipeline:
         self._loop_live = False
         self._overflow_warned = False
         self.compactions = 0
+
+    def _hooks(self) -> dict:
+        return dict(assoc=self._assoc, graph_optimizer=self._graph_optimizer,
+                    read=self._read)
 
     def _check_overflow(self):
         """Surface the keyframe-capacity policy: keyframes rejected at
@@ -264,17 +288,17 @@ class SlamPipeline:
         # the count > 1 guard reads the device; latched, it costs one read
         # per run
         if not self._loop_live:
-            if int(self.state.mapping.graph.count) <= 1:
+            if not self._read(self.state.mapping.graph.count > 1):
                 return
             self._loop_live = True
-        self.state = self.state._replace(
-            mapping=lm.loop_closure_step(self.state.mapping, cfg)[0])
+        self.state = self.state._replace(mapping=lm.loop_closure_step(
+            self.state.mapping, cfg, graph_optimizer=self._graph_optimizer, read=self._read)[0])
 
     def _maybe_compact(self, margin: int = 16):
         """Keep-mapping-forever policy: within ``margin`` keyframes of
         capacity, thin old keyframes (``laser_mapping.compact_keyframes``)
         so new territory keeps mapping."""
-        if int(self.state.mapping.graph.count) >= self.cfg.max_keyframes - margin:
+        if self._read(self.state.mapping.graph.count >= self.cfg.max_keyframes - margin):
             self.state = self.state._replace(
                 mapping=lm.compact_keyframes(self.state.mapping, self.cfg))
             self.compactions += 1
@@ -322,7 +346,7 @@ class SlamPipeline:
             self.state, self._to_device(points, self._dtype),
             self._to_device(mask, torch.bool),
             torch.full((), t, dtype=self._dtype, device=self.device),
-            self.cfg, do_map_static=do_map, do_loop_static=do_loop)
+            self.cfg, do_map_static=do_map, do_loop_static=do_loop, **self._hooks())
         self._frame += 1
         self._maybe_loop(1)
         self.poses.append(pose)
@@ -367,7 +391,7 @@ class SlamPipeline:
             self.state, pose = slam_step(
                 self.state, pts[i], msk[i], ts[i], cfg,
                 do_map_static=f % cfg.map_frame_decimation == 0,
-                do_loop_static=f % cfg.loop_every_n_frames == 0)
+                do_loop_static=f % cfg.loop_every_n_frames == 0, **self._hooks())
             out.append(pose)
         self._frame += n
         self._maybe_loop(n)

@@ -267,7 +267,7 @@ def _factored_solver(Ad, Jr, info, Vs):
     return solve
 
 
-def optimize(g: PoseGraph, chain_sigma, iters: int) -> PoseGraph:
+def optimize(g: PoseGraph, chain_sigma, iters: int, max_step: float = MAX_STEP) -> PoseGraph:
     """Production GN: factored O(N) chain solve + low-rank loop fold-in,
 
         delta = -(T + Vs Vs^T)^{-1} b
@@ -277,7 +277,7 @@ def optimize(g: PoseGraph, chain_sigma, iters: int) -> PoseGraph:
     and a 6L x 6L core solve.  The reference's mixed precision: the system
     is assembled in f64, solved in f32, and one f64 residual
     ``-b - (T + Vs Vs^T) delta`` is solved again in f32 and added.  A global
-    trust-region scale keeps every node's step within ``MAX_STEP``.
+    trust-region scale keeps every node's step within ``max_step``.
     ``iters`` GN iterations, no early stop."""
     dtype, dev = g.poses.dtype, g.poses.device
     active = torch.arange(g.poses.shape[0], device=dev) < g.count
@@ -291,7 +291,7 @@ def optimize(g: PoseGraph, chain_sigma, iters: int) -> PoseGraph:
         res = -b - _apply_system(Ad, Jr, info, Vs, delta)
         delta = (delta + solve32(-res.float()).double()).to(dtype)
         step = torch.clamp(torch.max(torch.abs(delta)), min=1e-12)
-        delta = delta * torch.clamp(torch.full_like(step, MAX_STEP) / step, max=1.0)
+        delta = delta * torch.clamp(torch.full_like(step, max_step) / step, max=1.0)
         upd = g.poses @ se3.se3_exp(delta)
         g = g._replace(poses=torch.where(active[:, None, None], upd, g.poses))
     return g

@@ -1,6 +1,5 @@
-"""Closed-form batched 3x3 symmetric eigen-analysis, neighbour fits and the
-Kabsch rotation, the port of ``alego_tpu.ops.eig3`` that mapping and loop
-closure call.
+"""Closed-form batched 3x3 symmetric eigen-analysis, neighbour fits, the
+Kabsch rotation and the SPD 3x3 solve, the port of ``alego_tpu.ops.eig3``.
 
 The closed forms are kept (trigonometric eigenvalues, Cayley-Hamilton
 eigenvectors, the centred total-least-squares plane) so the port tracks the
@@ -22,6 +21,30 @@ def det_3x3(A: torch.Tensor) -> torch.Tensor:
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
     return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+
+
+def solve_spd_3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Closed-form Cholesky solve of batched SPD A [..., 3, 3] x = b [..., 3],
+    unrolled as the reference's.  Pivots are clamped RELATIVE to the
+    diagonal's scale (1e-7 of the trace, plus 1e-30): on an ill-conditioned
+    input every intermediate stays bounded, where an absolute clamp lets
+    f32 cancellation overflow the back-substitution to NaN."""
+    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    a11, a12, a22 = A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]
+    floor = 1e-7 * (a00 + a11 + a22) + 1e-30
+    l00 = torch.sqrt(torch.maximum(a00, floor))
+    l10 = a01 / l00
+    l20 = a02 / l00
+    l11 = torch.sqrt(torch.maximum(a11 - l10 * l10, floor))
+    l21 = (a12 - l20 * l10) / l11
+    l22 = torch.sqrt(torch.maximum(a22 - l20 * l20 - l21 * l21, floor))
+    y0 = b[..., 0] / l00
+    y1 = (b[..., 1] - l10 * y0) / l11
+    y2 = (b[..., 2] - l20 * y0 - l21 * y1) / l22
+    x2 = y2 / l22
+    x1 = (y1 - l21 * x2) / l11
+    x0 = (y0 - l10 * x1 - l20 * x2) / l00
+    return torch.stack([x0, x1, x2], -1)
 
 
 def _eye(like: torch.Tensor) -> torch.Tensor:

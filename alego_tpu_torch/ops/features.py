@@ -1,10 +1,12 @@
 """Corner/surf feature extraction (stage-2 front half), the port of
-``alego_tpu.ops.features`` with its default lane-parallel sector picker.
+``alego_tpu.ops.features``.
 
 Curvature (LO.cpp:193) and the occluded/parallel marks (LO.cpp:200-229) are
 shifted-array ops along the ring axis.  Picking (LO.cpp:242-348) is the
-reference's iterated masked argmax / argmin, all 6 sectors of all 16 rings
-at once: the reference vmaps the picker over rings, here the rings are a
+reference's iterated masked argmax / argmin: by default all 6 sectors of
+all 16 rings at once (the lane-parallel picker), or with
+``parallel_sectors=False`` the reference's sequential picker, sector after
+sector.  The reference vmaps the picker over rings, here the rings are a
 batch dimension.  ``argmax``/``argmin`` return the first index on ties, as
 JAX's do.
 """
@@ -74,6 +76,77 @@ def occlusion_mask(seg: SegmentedScan, cfg: PipelineConfig) -> torch.Tensor:
     parallel = ((diff_prev > cfg.parallel_rel_diff * r)
                 & (diff_next > cfg.parallel_rel_diff * r))
     return picked | parallel
+
+
+def _suppress(picked, cols, k, do, cfg: PipelineConfig):
+    """Mark up to ``suppress_neighbors`` neighbours each side of each ring's
+    pick ``k`` [R], stopping at a column gap > ``suppress_col_gap``
+    (LO.cpp:282-305), where ``do`` [R]: the reference's ``_suppress``.  The
+    window's start is clamped into the ring as ``dynamic_slice`` clamps it
+    (a real pick's window is in bounds: sp >= 5, ep <= count - 7)."""
+    ns = cfg.suppress_neighbors
+    W = picked.shape[1]
+    start = torch.clamp(k - ns, 0, W - (2 * ns + 1))
+    win = start[:, None] + torch.arange(2 * ns + 1, device=k.device)
+    win_cols = torch.gather(cols, 1, win)
+    ok_gap = torch.abs(win_cols[:, 1:] - win_cols[:, :-1]) <= cfg.suppress_col_gap
+    fwd = torch.cumprod(ok_gap[:, ns:].to(torch.int32), 1).bool()
+    bwd = torch.cumprod(ok_gap[:, :ns].flip(1).to(torch.int32), 1).bool().flip(1)
+    upd = torch.cat([bwd, torch.zeros_like(fwd[:, :1]), fwd], 1) & do[:, None]
+    return picked.scatter(1, win, torch.gather(picked, 1, win) | upd)
+
+
+def _pick_rings_sequential(curv, cols, ground, picked0, in_window, count,
+                           cfg: PipelineConfig):
+    """The reference's sequential sector picking (``_pick_ring``), batched
+    over rings: sector after sector, the corner pass (descending curvature,
+    up to ``max_less_sharp_per_sector + 2`` steps including the one that
+    overflows) then the flat pass (ascending curvature, ground only).
+    Returns labels [R, W] int32 as :func:`_pick_rings_parallel`."""
+    R, W = curv.shape
+    dev = curv.device
+    idxs = torch.arange(W, dtype=torch.int32, device=dev)
+    label = torch.zeros((R, W), dtype=torch.int32, device=dev)
+    picked = picked0 | ~in_window
+    diff = count - 11                      # end - start with end = count - 6
+    S = cfg.n_sectors
+    for j in range(S):
+        sp = 5 + torch.div(j * diff, S, rounding_mode="floor")
+        ep = 5 + torch.div((j + 1) * diff, S, rounding_mode="floor") - 1
+        sector_ok = (sp < ep) & (diff > 0)
+        in_sector = ((idxs >= sp[:, None]) & (idxs <= ep[:, None])
+                     & sector_ok[:, None] & in_window)
+
+        # corner pass: descending curvature (LO.cpp:260-307)
+        n = torch.zeros(R, dtype=torch.int32, device=dev)
+        stopped = torch.zeros(R, dtype=torch.bool, device=dev)
+        for _ in range(cfg.max_less_sharp_per_sector + 2):
+            elig = in_sector & ~picked & (curv > cfg.edge_curv_thresh) & ~ground
+            has = elig.any(1) & ~stopped
+            k = torch.argmax(torch.where(elig, curv, NEG), 1)
+            n = n + has.to(torch.int32)
+            lab_val = torch.where(n <= cfg.max_sharp_per_sector, 2,
+                                  torch.where(n <= cfg.max_less_sharp_per_sector, 1, 0))
+            overflow = n > cfg.max_less_sharp_per_sector
+            at_k = idxs == k[:, None]
+            label = torch.where(at_k & (has & ~overflow)[:, None],
+                                lab_val.to(torch.int32)[:, None], label)
+            picked = picked | (at_k & has[:, None])
+            picked = _suppress(picked, cols, k, has & ~overflow, cfg)
+            stopped = stopped | (has & overflow)
+
+        # flat pass: ascending curvature, ground only (LO.cpp:309-348)
+        n = torch.zeros(R, dtype=torch.int32, device=dev)
+        for _ in range(cfg.max_flat_per_sector):
+            elig = in_sector & ~picked & (curv < cfg.edge_curv_thresh) & ground
+            has = elig.any(1)
+            k = torch.argmin(torch.where(elig, curv, POS), 1)
+            n = n + has.to(torch.int32)
+            hit = (idxs == k[:, None]) & has[:, None]
+            label = torch.where(hit, -1, label)
+            picked = picked | hit
+            picked = _suppress(picked, cols, k, has & (n < cfg.max_flat_per_sector), cfg)
+    return label
 
 
 def _pick_rings_parallel(curv, cols, ground, picked0, in_window, count,
@@ -162,12 +235,8 @@ def extract_features(seg: SegmentedScan, cfg: PipelineConfig) -> FeatureClouds:
     R, W = seg.ranges.shape
     curv, in_window = curvature_and_window(seg, cfg)
     picked0 = occlusion_mask(seg, cfg)
-    if not cfg.parallel_sectors:
-        raise NotImplementedError(
-            "the sequential sector picker (parallel_sectors=False) is not "
-            "ported; the default parallel picker is")
-    labels = _pick_rings_parallel(curv, seg.cols, seg.ground, picked0,
-                                  in_window, seg.counts, cfg)
+    picker = _pick_rings_parallel if cfg.parallel_sectors else _pick_rings_sequential
+    labels = picker(curv, seg.cols, seg.ground, picked0, in_window, seg.counts, cfg)
 
     ring_ids = torch.arange(R, dtype=torch.int32,
                             device=curv.device)[:, None].expand(R, W).reshape(-1)

@@ -46,7 +46,7 @@ def icp_point_to_point(src: torch.Tensor, src_valid: torch.Tensor,
                        tgt: torch.Tensor, tgt_valid: torch.Tensor,
                        iters: int, max_corr_dist: float,
                        translation_eps: float = 1e-6,
-                       T0: Optional[torch.Tensor] = None) -> ICPResult:
+                       T0: Optional[torch.Tensor] = None, read=bool) -> ICPResult:
     """Align the masked source cloud to the masked target cloud from ``T0``.
 
     ``converged`` follows PCL's ``DefaultConvergenceCriteria``: true when
@@ -55,7 +55,8 @@ def icp_point_to_point(src: torch.Tensor, src_valid: torch.Tensor,
     default has it, also when the budget runs out.  False when no
     correspondence fell inside ``max_corr_dist`` or the fitness is not
     finite.  ``src`` and ``tgt`` must be contiguous on the GPU (the kernel's
-    contract)."""
+    contract).  ``read(flag) -> bool`` reads the stop flag on the host
+    (``Comm.read`` on several ranks)."""
     dtype, dev = src.dtype, src.device
     I4 = torch.eye(4, dtype=dtype, device=dev)
     T = I4 if T0 is None else T0
@@ -77,7 +78,7 @@ def icp_point_to_point(src: torch.Tensor, src_valid: torch.Tensor,
         rot_small = (torch.trace(R) - 1.0) * 0.5 >= (1.0 - translation_eps)
         n_corr = w.sum()
         it += 1
-        if bool(trans_small & rot_small):
+        if read(trans_small & rot_small):
             break
 
     d2, _ = _nn1(_moved(src, T), src_valid, tgt, tgt_valid)

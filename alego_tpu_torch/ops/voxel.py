@@ -104,3 +104,8 @@ def compact_masked(points: torch.Tensor, mask: torch.Tensor, cap: int,
     if aux is None:
         return out_pts, out_mask
     return out_pts, out_mask, torch.where(out_mask, aux[o], 0)
+
+
+def merge_masked(list_pts, list_masks, cap: int):
+    """Concatenate masked sets, then front-compact them into ``cap`` slots."""
+    return compact_masked(torch.cat(list_pts, 0), torch.cat(list_masks, 0), cap)

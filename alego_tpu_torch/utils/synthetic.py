@@ -330,3 +330,45 @@ def render_sequence(world: World, poses: np.ndarray, cfg: PipelineConfig,
         out[k, : len(pts)] = pts
         msk[k, : len(pts)] = True
     return out, msk
+
+
+def circuit_graph(N: int, count: int, n_loops: int, loop_cap: int, seed: int = 0,
+                  noise: float = 0.01, loop_stride: int = 7):
+    """A noisy multi-lap circuit pose graph (tests/test_schur.py's
+    ``_make_graph``): ``count`` poses of capacity ``N`` on a circle of
+    count // 3 unit steps, chain measurements perturbed by uniform noise in
+    [-noise, noise] on each twist coordinate and chained into drifting
+    estimates, and ``n_loops`` exact loop factors (weight 25) one lap apart.
+    Returns (the port's ``PoseGraph`` on the CPU, ground-truth poses
+    [count, 4, 4])."""
+    import torch
+    from ..models import pose_graph as pg
+    from ..ops import se3
+
+    rng = np.random.default_rng(seed)
+    lap = max(count // 3, 4)
+    step = se3.params_to_mat(torch.tensor([1.0, 0, 0, 0, 0, 2 * np.pi / lap])).numpy()
+    truth = np.zeros((count, 4, 4), np.float32)
+    cur = np.eye(4, dtype=np.float32)
+    for k in range(count):
+        truth[k] = cur
+        cur = (cur @ step).astype(np.float32)
+    rels, noisy = np.zeros_like(truth), truth.copy()
+    rels[0] = truth[0]
+    cur = truth[0]
+    for k in range(1, count):
+        d = torch.from_numpy(rng.uniform(-noise, noise, 6).astype(np.float32))
+        rels[k] = (step @ se3.se3_exp(d).numpy()).astype(np.float32)
+        cur = (cur @ rels[k]).astype(np.float32)
+        noisy[k] = cur
+    g = pg.init_graph(N, loop_cap, "cpu")
+    g.poses[:count] = torch.from_numpy(noisy)
+    g.chain_rel[:count] = torch.from_numpy(rels)
+    g = g._replace(count=torch.tensor(count, dtype=torch.int32))
+    for l in range(n_loops):
+        i = lap + (l * loop_stride) % max(count - lap - 1, 1)
+        rel = np.linalg.inv(truth[i]) @ truth[i - lap]
+        g = pg.add_loop_factor(g, torch.tensor(i, dtype=torch.int32),
+                               torch.tensor(i - lap, dtype=torch.int32),
+                               torch.from_numpy(rel.astype(np.float32)), torch.tensor(25.0))
+    return g, truth

@@ -3,6 +3,10 @@
 
 Usage: ``python3 chip_smoke.py`` from the root of the repository, on a
 machine with an NVIDIA Hopper GPU (sm_90a) and the CUDA toolkit.
+``python3 chip_smoke.py --nccl-mesh``, on a machine with 4 such cards, runs
+only the single map over 4 NCCL ranks, a card each, and the same 4 ranks
+sharing card 0 over host-staged gloo, each against the single loop path of
+the same call (phases 12 and 14's checks, without the kernel rows).
 
 Phases (each failure raises and exits non-zero; there is no CPU path; each
 phase prints its seconds):
@@ -51,7 +55,26 @@ phase prints its seconds):
    ``use_imu``, hoisted loop attempts, chunks of 16), counted and timed;
    frames, IMU messages, launches, keyframes, loops and their pairs, and the
    ATE of its TUM trajectory held at the card's answer, beside the ATE of
-   the same frames without de-skew through ``run_scanned``.
+   the same frames without de-skew through ``run_scanned``;
+11. ``mesh_nccl1``: ``DistributedSlamPipeline`` in a one-rank NCCL group
+   over the main path's 32 frames: the launches and the ATE of the main
+   path (one shard: the candidates' merge is the identity);
+12. ``mesh_single_map``: ``DistributedSlamPipeline`` on 4 ranks sharing
+   the card over gloo with host-staged collectives, over the whole circuit
+   with loop closure (the 5-NN on each rank's quarter of the local map, the
+   Schur solve across the ranks), held against the loop path of the same
+   call (its loop pairs; trajectory and ATE within 5e-2 m) and at its own
+   answer; ms/frame, per-rank launches, seconds in collectives, the largest
+   all-gather and the peak memory per rank;
+13. ``mesh_lanes``: ``ShardedSlamPipeline``, 2 lanes of 32 frames rendered
+   as the CLI's ``--mesh`` renders them, each lane within 1e-6 m of a
+   single ``SlamPipeline`` run of its sequence;
+14. ``mesh_kernels_and_solver``: the k-NN at the 4-rank shard shapes of
+   the local map against its plain version (timed like phase 5), the
+   frame-parallel front end of the 4 ranks bit for bit the single front
+   end's, and the Schur solve at N = 2048 with 32 loop slots on the 4
+   ranks against the single-card ``optimize`` at the reference test's bar
+   (tests/test_schur.py, ``test_distributed_fixed_point_at_2048``).
 
 The last lines of standard output are the card's ``nvidia-smi`` name and
 power limit, one JSON object with a row per kernel, and
@@ -64,6 +87,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -103,6 +127,16 @@ IMU_HZ, IMU_RPY_SIGMA, IMU_ACC_SIGMA, IMU_SEED = 40, float(np.radians(0.3)), 0.0
 # skewed frames through run_scanned without it
 DESKEW_PAIRS = [(95, 0)]
 DESKEW_ATE_M, NO_DESKEW_ATE_M, DESKEW_ATE_TOL_M = 0.67855, 0.94204, 1e-3
+# the single map on MESH_RANKS ranks sharing the card: the reference's bars
+# against the single-device run (tests/test_distributed_pipeline.py), and
+# the card's own answer (runs repeat it to the last digit): the loop
+# factors and the unaligned ATE (m) of the streamed and corrected keyframe
+# poses, held like the loop path's
+MESH_RANKS = 4
+MESH_TRAJ_TOL_M = MESH_ATE_TOL_M = 5e-2
+MESH_LOOP_PAIRS = [(87, 0), (89, 0), (92, 0), (94, 0)]
+MESH_ATE_M, MESH_KF_ATE_M = 0.32286, 0.38900
+N_LANE = 32           # frames of each --mesh lane
 # timing: the median over *_WINDOWS windows of *_REPS back-to-back calls
 KERNEL_WINDOWS, KERNEL_REPS = 21, 5
 PLAIN_WINDOWS, PLAIN_REPS = 3, 1
@@ -441,14 +475,14 @@ class _AttemptLog:
         lm, icp = self.lm, self.icp
         real_step, real_nn1, real_knn = self._real
 
-        def step(ms, cfg):
+        def step(ms, cfg, **kw):
             found, closest, latest = lm.detect_loop(ms, cfg)
             n0 = int(ms.loop_attempts)
             before = dict(self.kernels.LAUNCHES)
             self.torch.cuda.synchronize()
             t0 = time.time()
             self._first_nn1 = True
-            out = real_step(ms, cfg)
+            out = real_step(ms, cfg, **kw)
             self.torch.cuda.synchronize()
             dt = time.time() - t0
             if int(out[0].loop_attempts) != n0:
@@ -514,14 +548,11 @@ def _check_loop_results(res, what):
         f"{LOOP_ATE_M} / {LOOP_KF_ATE_M} m"
 
 
-def phase_loop_path(cfg, gt, pts, mask):
-    """The whole circuit through ``SlamPipeline`` with hoisted loop closure,
-    twice.  The first run is the path as a user drives it, nothing wrapped:
-    counted (counts set to 0 just before it) and timed, with one
-    synchronise at the end.  The second records each attempt (one
-    synchronise before and after it, its candidate, launches and host
-    seconds, and the last attempt's search inputs for the kernel rows); it
-    must give the first run's loops and attempts' launches."""
+def _counted_loop_run(cfg, gt, pts, mask):
+    """The whole circuit through ``SlamPipeline`` with hoisted loop closure
+    as a user drives it, nothing wrapped: counted (counts set to 0 just
+    before it) and timed, with one synchronise at the end.  Its summary,
+    checked, and its poses."""
     import torch
     from alego_tpu_torch import kernels
     from alego_tpu_torch.models.pipeline import SlamPipeline
@@ -531,6 +562,7 @@ def phase_loop_path(cfg, gt, pts, mask):
     total_s = timed_pass(pipe, pts, mask)
     launches = dict(kernels.LAUNCHES)
     res = _loop_results(pipe, gt)
+    est = torch.stack(pipe.poses).cpu().numpy()
     n = pts.shape[0]
     n_map = -(-n // cfg.map_frame_decimation)
     # the attempts' launches: all of the run's less the frame step's
@@ -541,7 +573,21 @@ def phase_loop_path(cfg, gt, pts, mask):
     log(f"loop path: {json.dumps(summary)}")
     assert launches["ccl"] == n, f"ccl launches {launches['ccl']} != {n}"
     _check_loop_results(res, "loop path")
+    return summary, est
 
+
+def phase_loop_path(cfg, gt, pts, mask):
+    """The whole circuit through ``SlamPipeline`` with hoisted loop closure,
+    twice.  The first run is the path as a user drives it, nothing wrapped:
+    counted (counts set to 0 just before it) and timed, with one
+    synchronise at the end.  The second records each attempt (one
+    synchronise before and after it, its candidate, launches and host
+    seconds, and the last attempt's search inputs for the kernel rows); it
+    must give the first run's loops and attempts' launches."""
+    from alego_tpu_torch.models.pipeline import SlamPipeline
+
+    summary, est_first = _counted_loop_run(cfg, gt, pts, mask)
+    in_attempts = summary["attempt_launches_total"]
     pipe = SlamPipeline(cfg, device="cuda")
     with _AttemptLog() as rec:
         timed_pass(pipe, pts, mask)
@@ -558,7 +604,7 @@ def phase_loop_path(cfg, gt, pts, mask):
     assert set(rec.inputs) == {"nn1", "knn"}, "an attempt ran without its searches"
     summary.update(attempt_launches=[(a["nn1"], a["knn"]) for a in rec.attempts],
                    attempt_seconds=[a["seconds"] for a in rec.attempts])
-    return summary, rec.inputs
+    return summary, rec.inputs, est_first
 
 
 def phase_loop_kernels(summary, inputs):
@@ -655,9 +701,9 @@ def phase_in_step(cfg, pts, mask):
     calls = []
     real = lm.loop_closure_step
 
-    def counted(ms, c):
+    def counted(ms, c, **kw):
         calls.append(len(pipe.poses))
-        return real(ms, c)
+        return real(ms, c, **kw)
 
     pipe = SlamPipeline(cfg_in, device="cuda")
     lm.loop_closure_step = counted
@@ -813,7 +859,7 @@ def phase_deskew_cpu_agreement():
         assert dt < 1e-4 and dr < 1e-5, f"card and CPU disagree ({what})"
         worst[what] = dt
 
-    with __import__("tempfile").TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "state.npz")
         full = imu_pipe("cuda")
         for k in range(6):
@@ -948,12 +994,288 @@ def phase_deskew_path(cfg, gt, pts, mask, imu):
     return res
 
 
-def main():
+def phase_mesh_nccl1(cfg, gt, pts, mask, tmp):
+    """``DistributedSlamPipeline`` in a one-rank NCCL group over the main
+    path's frames (the only NCCL group one card allows): the rank's counts
+    are set to 0 just before its run, and must be the main path's, as must
+    the ATE."""
+    from alego_tpu_torch.parallel import launch, ranks
+    from alego_tpu_torch.utils.metrics import ate_rmse
+
+    frames = ranks.save_frames(os.path.join(tmp, "main_path"), pts, mask)
+    res = launch.launch(ranks.distributed_run, 1, cfg, frames, 2, device="cuda",
+                        backend="nccl", timeout=600)
+    n = pts.shape[0]
+    r0 = res["ranks"][0]
+    launches = {k: int(r0[k]) for k in ("ccl", "nn1", "knn")}
+    n_map = -(-n // cfg.map_frame_decimation)
+    expected = {"ccl": n, "nn1": 2 * max(cfg.odom_outer_iters, 1) * n,
+                "knn": 2 * cfg.map_outer_iters * n_map}
+    est = res["poses"]
+    assert np.isfinite(est).all(), "non-finite pose"
+    ate = ate_rmse(est[:, :3, 3], gt[:, :3, 3], align=False)
+    out = dict(frames=n, backend=res["backend"], ms_per_frame=res["seconds"] / n * 1e3,
+               ate_m=ate, launches=launches, collective_calls=int(r0["collective_calls"]),
+               peak_mib=r0["peak_mib"])
+    log(f"mesh_nccl1: {json.dumps(out)}")
+    assert res["backend"] == "nccl", res["backend"]
+    assert launches == expected, f"launch counts {launches} != {expected}"
+    assert abs(ate - ATE_M) <= ATE_TOL_M, f"ATE {ate:.5f} m moved from {ATE_M} m"
+    return out
+
+
+def _schur_case():
+    """tests/test_schur.py's ``test_distributed_fixed_point_at_2048`` graph
+    at the production loop capacity: N = 2048, 2000 poses with 1 mm chain
+    noise, 12 loops, 32 loop slots."""
+    from alego_tpu_torch.utils import synthetic
+    return synthetic.circuit_graph(2048, 2000, 12, loop_cap=32, seed=2, noise=0.001,
+                                   loop_stride=167)
+
+
+SCHUR_SIGMA, SCHUR_ITERS, SCHUR_MAX_STEP = (1e-4,) * 6, 8, 5.0
+
+
+def _chain_case():
+    """A 60-pose chain in 64 slots whose estimates were pushed off its
+    measurements, for the multichip step's solve."""
+    import torch
+    from alego_tpu_torch.ops import se3
+    from alego_tpu_torch.utils import synthetic
+    g = synthetic.circuit_graph(64, 60, 0, loop_cap=8, seed=3)[0]
+    kick = np.random.default_rng(5).uniform(-0.05, 0.05, (59, 6)).astype(np.float32)
+    g.poses[1:60] = g.poses[1:60] @ se3.se3_exp(torch.from_numpy(kick))
+    return g.poses.numpy(), g.chain_rel.numpy(), np.arange(64) < 60
+
+
+def phase_mesh_ranks(cfg, pts, mask, tmp, backend="gloo", cards=1):
+    """One group of MESH_RANKS ranks: sharing card 0 over gloo with the
+    collectives staged through host memory (``cards=1``), or over NCCL with
+    a card per rank.  The single-map run over the circuit (a 2-frame
+    warm-up, then counted and timed), the frame-parallel front end on the
+    first 4 frames, and the Schur solve of :func:`_schur_case`."""
+    import torch
+    from alego_tpu_torch.parallel import launch, ranks
+
+    frames = ranks.save_frames(os.path.join(tmp, "circuit"), pts, mask)
+    g, _ = _schur_case()
+    graph = type(g)(*(x.numpy() for x in g))
+    torch.cuda.empty_cache()
+    return launch.launch(ranks.run_jobs, MESH_RANKS, [
+        (ranks.distributed_run, (cfg, frames, 2)),
+        (ranks.multichip_step, (cfg, pts[:4], mask[:4], *_chain_case())),
+        (ranks.schur_solve, (graph, SCHUR_SIGMA, SCHUR_ITERS, SCHUR_MAX_STEP))],
+        backend=backend, device="cuda", cards=cards, timeout=900)
+
+
+def phase_mesh_single_map(cfg, gt, res, loop_summary, loop_est, backend="gloo"):
+    """The single map on the ranks against the loop path of this call (its
+    loop pairs; trajectory and ATE within the reference's 5e-2 m), then at
+    its own answer; every rank must end with rank 0's graph and poses."""
+    from alego_tpu_torch.parallel import ranks
+    from alego_tpu_torch.utils.metrics import ate_rmse
+
+    est = res["poses"]
+    n = est.shape[0]
+    assert np.isfinite(est).all(), "non-finite pose"
+    ate = ate_rmse(est[:, :3, 3], gt[:, :3, 3], align=False)
+    gt_idx = np.clip(np.round(res["kf_times"] / cfg.scan_period).astype(int), 0, n - 1)
+    kf_ate = ate_rmse(res["kf_poses"][:, :3, 3], gt[gt_idx, :3, 3], align=False)
+    traj = float(np.linalg.norm(est[:, :3, 3] - loop_est[:, :3, 3], axis=1).max())
+    per_rank = [dict(knn=int(r["knn"]), nn1=int(r["nn1"]), ccl=int(r["ccl"]),
+                     collective_s_per_frame=r["collective_seconds"] / n,
+                     collective_calls=int(r["collective_calls"]),
+                     max_gather_bytes=int(r["max_gather_bytes"]), peak_mib=r["peak_mib"],
+                     poses_checksum=r["poses_checksum"],
+                     kf_poses_checksum=r["kf_poses_checksum"])
+                for r in res["ranks"]]
+    agree = ranks.ranks_agree(res["ranks"])
+    out = dict(ranks=MESH_RANKS, frames=n, staged=res["staged"], backend=res["backend"],
+               ms_per_frame=res["seconds"] / n * 1e3,
+               single_ms_per_frame=loop_summary["ms_per_frame"], ate_m=ate, kf_ate_m=kf_ate,
+               single_ate_m=loop_summary["ate_m"], max_traj_diff_m=traj,
+               keyframes=res["keyframes"], loops=res["loops"], loop_pairs=res["loop_pairs"],
+               attempts=res["attempts"], compactions=res["compactions"], ranks_agree=agree,
+               per_rank=per_rank)
+    log(f"mesh_single_map: {json.dumps(out)}")
+    assert res["backend"] == backend and res["staged"] == (backend == "gloo"), \
+        f"transport {res['backend']} (staged {res['staged']}), not {backend}"
+    assert agree, "the ranks' replicated graphs or poses differ"
+    assert res["overflow"] == 0 and res["loop_overflow"] == 0, "capacity reached"
+    assert [tuple(p) for p in res["loop_pairs"]] == LOOP_PAIRS, \
+        f"loop pairs {res['loop_pairs']} != the single path's {LOOP_PAIRS}"
+    assert traj <= MESH_TRAJ_TOL_M, f"trajectory {traj:.4f} m from the single path's"
+    assert abs(ate - loop_summary["ate_m"]) <= MESH_ATE_TOL_M, \
+        f"ATE {ate:.5f} m against the single path's {loop_summary['ate_m']:.5f} m"
+    n_map = -(-n // cfg.map_frame_decimation)
+    for r in per_rank:   # every rank ran its shard of every mapping search
+        assert r["ccl"] == n and r["knn"] >= 2 * cfg.map_outer_iters * n_map, r
+    assert [tuple(p) for p in res["loop_pairs"]] == MESH_LOOP_PAIRS
+    assert res["attempts"] == LOOP_ATTEMPTS, f"{res['attempts']} attempts"
+    assert abs(ate - MESH_ATE_M) <= LOOP_ATE_TOL_M and \
+        abs(kf_ate - MESH_KF_ATE_M) <= LOOP_ATE_TOL_M, \
+        f"ATE {ate:.5f} / {kf_ate:.5f} m moved from {MESH_ATE_M} / {MESH_KF_ATE_M} m"
+    return out
+
+
+def phase_mesh_lanes(tmp):
+    """``ShardedSlamPipeline``: 2 lanes sharing the card over gloo, each a
+    N_LANE-frame sequence rendered as ``cli --mesh`` renders it, against a
+    single ``SlamPipeline`` run of the same sequence in this process."""
+    from alego_tpu_torch import PipelineConfig
+    from alego_tpu_torch.models.pipeline import SlamPipeline
+    from alego_tpu_torch.parallel import launch, ranks
+    from alego_tpu_torch.utils import synthetic
+
+    cfg = PipelineConfig()
+    radius = max(4.0, N_LANE * 0.25 / (2 * 3.14159))
+    gt = synthetic.loop_trajectory(N_LANE, radius=radius, closed=True)
+    seqs = [synthetic.render_sequence(synthetic.make_world(seed=7 + b, clear_path=gt[:, :2, 3]),
+                                      gt, cfg, noise=0.01, seed=b) for b in range(2)]
+    frames = ranks.save_frames(os.path.join(tmp, "lanes"), np.stack([p for p, _ in seqs], 1),
+                               np.stack([m for _, m in seqs], 1))
+    res = launch.launch(ranks.lanes_run, 2, cfg, frames, backend="gloo", device="cuda",
+                        timeout=600)
+    traj = res["trajectories"]
+    diffs = []
+    for b, (p, m) in enumerate(seqs):
+        single = SlamPipeline(cfg, device="cuda").run(p, m)
+        diffs.append(float(np.abs(traj[:, b, :3, 3] - single[:, :3, 3]).max()))
+    out = dict(lanes=2, frames=N_LANE, seconds=res["seconds"],
+               keyframes=[int(k) for k in res["keyframes"]], max_diff_m=diffs)
+    log(f"mesh_lanes: {json.dumps(out)}")
+    assert np.isfinite(traj).all(), "non-finite pose"
+    assert max(diffs) <= 1e-6, f"a lane differs from its single run by {max(diffs)} m"
+    return out
+
+
+def phase_mesh_kernels_and_solver(cfg, pts, mask, state, res_ranks):
+    """The k-NN at the shard shapes of the 32-frame run's local map (the
+    last frame's scan against each rank's quarter), timed and held bit for
+    bit against its plain version; then :func:`_check_mesh_front_and_solver`."""
+    import torch
+    from alego_tpu_torch.models import laser_mapping as lm
+    from alego_tpu_torch.ops import se3
+
+    dev = torch.device("cuda")
+    _, seg, fc = _frame_features(cfg, pts[-1], mask[-1], dev)
+    map_c, map_c_ok, map_s, map_s_ok = lm._build_local_map(state.mapping, cfg)
+    c_ds, c_ok, _, _, _, _, st_ds, st_ok = lm._downsample_scan(
+        fc.less_sharp_pts, fc.less_sharp_valid, fc.less_flat_pts,
+        fc.less_flat_valid, seg.outlier_points, seg.outlier_valid, cfg)
+    p = se3.mat_to_params(state.mapping.T_map2laser)
+    q_c, q_s = se3.transform_points(p, c_ds), se3.transform_points(p, st_ds)
+    cases = []
+    for r in range(MESH_RANKS):
+        nc, ns = map_c.shape[0] // MESH_RANKS, map_s.shape[0] // MESH_RANKS
+        cases += [(f"corner rank {r}", q_c, c_ok, map_c[r * nc:(r + 1) * nc],
+                   map_c_ok[r * nc:(r + 1) * nc]),
+                  (f"surf rank {r}", q_s, st_ok, map_s[r * ns:(r + 1) * ns],
+                   map_s_ok[r * ns:(r + 1) * ns])]
+    row = _nn_row("knn_map_shard_d4", "knn", "alego_tpu/ops/pallas_nn.py:227", cases,
+                  cfg.map_knn)
+    # the k-NN launches of the MESH_RANKS ranks on the single-map path
+    row["launches"] = sum(int(r["knn"]) for r in res_ranks[0]["ranks"])
+    out = _check_mesh_front_and_solver(cfg, pts, mask, res_ranks)
+    out.update(knn_shard_ms=row["ms"], knn_shard_kernel_only_ms=row["kernel_only_ms"])
+    log(f"mesh_kernels_and_solver: {json.dumps(out)}")
+    return [row], out
+
+
+def _check_mesh_front_and_solver(cfg, pts, mask, res_ranks):
+    """The ranks' front end against the single front end, bit for bit; the
+    ranks' Schur solve against ``optimize`` on the card at the reference
+    test's bar."""
+    import torch
+    from alego_tpu_torch.device import vector
+    from alego_tpu_torch.models import pose_graph as pg
+    from alego_tpu_torch.models.image_projection import image_projection
+    from alego_tpu_torch.ops.features import extract_features
+
+    dev = torch.device("cuda")
+    _, (fc_ranks, _), schur = res_ranks
+    for b in range(4):
+        one = extract_features(image_projection(torch.as_tensor(pts[b], device=dev),
+                                                torch.as_tensor(mask[b], device=dev), cfg), cfg)
+        for name, got, want in zip(one._fields, fc_ranks, one):
+            assert np.array_equal(got[b], want.cpu().numpy()), \
+                f"frame {b}: the ranks' front end differs in {name}"
+
+    g, truth = _schur_case()
+    count = truth.shape[0]
+    gc = type(g)(*(x.to(dev) for x in g))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    gg = pg.optimize(gc, SCHUR_SIGMA, SCHUR_ITERS, max_step=SCHUR_MAX_STEP)
+    torch.cuda.synchronize()
+    single_s = time.time() - t0
+    pd, pgl = schur["poses"][:count], gg.poses[:count].cpu().numpy()
+    drift = float(np.abs(g.poses[:count, :3, 3].numpy() - truth[:, :3, 3]).max())
+    gap = float(np.abs(pd[:, :3, 3] - pgl[:, :3, 3]).max())
+    err = float(np.abs(pd[:, :3, 3] - truth[:, :3, 3]).max())
+    sigma = vector(SCHUR_SIGMA, torch.float32, dev)
+    grad0 = float(pg._gn_parts(gc, sigma)[3].abs().max())
+    gd = gc._replace(poses=torch.as_tensor(schur["poses"], device=dev))
+    grad = float(pg._gn_parts(gd, sigma)[3].abs().max())
+    out = dict(frontend_frames=4, schur_s_per_iter=schur["seconds"] / SCHUR_ITERS,
+               schur_collective_s=schur["collective_seconds"],
+               optimize_s_per_iter=single_s / SCHUR_ITERS, schur_vs_optimize_m=gap,
+               drift_m=drift, schur_err_m=err, gradient=(grad0, grad))
+    assert np.isfinite(pd).all(), "non-finite Schur poses"
+    assert gap < 2e-3, f"Schur solve {gap} m from optimize"
+    assert drift > 1.0 and err < 0.2 * drift, (err, drift)
+    assert grad < 0.01 * grad0, (grad0, grad)
+    return out
+
+
+def nccl_mesh():
+    """``--nccl-mesh``, on a machine with MESH_RANKS cards or more: the
+    single map over NCCL with a card per rank, then the same ranks sharing
+    card 0 over host-staged gloo, each held like ``mesh_single_map`` against
+    the single loop path of the same call, with the ranks' front end and
+    Schur solve checked as in ``mesh_kernels_and_solver``."""
+    import torch
+    from alego_tpu_torch import PipelineConfig
+
+    if torch.cuda.device_count() < MESH_RANKS:
+        print(f"chip_smoke --nccl-mesh: needs {MESH_RANKS} cards", file=sys.stderr)
+        return 2
+    smi = phase_environment()
+    phase_build()
+    cfg = PipelineConfig().replace(loop_in_step=False)
+    gt, pts, mask = render(cfg, N_CIRCUIT)
+    phase_main_path(cfg, gt[:N_FRAMES], pts[:N_FRAMES], mask[:N_FRAMES])   # the warm-up
+    loop_summary, loop_est = _counted_loop_run(cfg, gt, pts, mask)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for backend, cards in (("nccl", MESH_RANKS), ("gloo", 1)):
+            t0 = time.time()
+            res = phase_mesh_ranks(cfg, pts, mask, tmp, backend, cards)
+            log(f"{backend} on {cards} card(s): launch and run {time.time() - t0:.1f} s")
+            phase_mesh_single_map(cfg, gt, res[0], loop_summary, loop_est, backend)
+            log(f"mesh front end and solver ({backend}): "
+                f"{json.dumps(_check_mesh_front_and_solver(cfg, pts, mask, res))}")
+    print(_run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--nccl-mesh", action="store_true",
+                    help=f"only the single map over NCCL, one card per rank "
+                         f"({MESH_RANKS} cards), beside the single loop path and the ranks "
+                         "on card 0 over host-staged gloo")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if args.nccl_mesh:
+        return nccl_mesh()
     from alego_tpu_torch import PipelineConfig
 
     t_start = time.time()
@@ -973,7 +1295,8 @@ def main():
 
     state, launches, summary = phase("main_path", phase_main_path, cfg, gt[:N_FRAMES],
                                      pts[:N_FRAMES], mask[:N_FRAMES])
-    loop_summary, loop_inputs = phase("loop_path", phase_loop_path, cfg, gt, pts, mask)
+    loop_summary, loop_inputs, loop_est = phase("loop_path", phase_loop_path, cfg, gt, pts,
+                                                mask)
     # the kernels are checked on the frames and the local map of the 32-frame
     # run, and at the loop shapes on the last attempt's inputs
     rows = phase("kernels", phase_kernels, cfg, pts[:N_FRAMES], mask[:N_FRAMES], state)
@@ -986,10 +1309,21 @@ def main():
     radius = phase("radius_path", phase_radius_path, cfg, gt[:N_FRAMES], pts[:N_FRAMES],
                    mask[:N_FRAMES])
     phase("deskew_cpu_agreement", phase_deskew_cpu_agreement)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        nccl1 = phase("mesh_nccl1", phase_mesh_nccl1, cfg, gt[:N_FRAMES], pts[:N_FRAMES],
+                      mask[:N_FRAMES], tmp)
+        mesh_out = phase("mesh_ranks", phase_mesh_ranks, cfg, pts, mask, tmp)
+        single_map = phase("mesh_single_map", phase_mesh_single_map, cfg, gt, mesh_out[0],
+                           loop_summary, loop_est)
+        lanes = phase("mesh_lanes", phase_mesh_lanes, tmp)
+    mesh_rows, solver = phase("mesh_kernels_and_solver", phase_mesh_kernels_and_solver, cfg,
+                              pts[:N_FRAMES], mask[:N_FRAMES], state, mesh_out)
+    rows += mesh_rows
     del pts, mask          # the skewed frames take their place in host memory
     gt_s, pts_s, mask_s, imu = phase("render_skewed", render_skewed, cfg, N_CIRCUIT)
     replay = phase("deskew_path", phase_deskew_path, cfg, gt_s, pts_s, mask_s, imu)
-    summary.update(radius_path=radius, deskew_path=replay)
+    summary.update(radius_path=radius, deskew_path=replay, mesh_nccl1=nccl1,
+                   mesh_single_map=single_map, mesh_lanes=lanes, mesh_solver=solver)
     log(f"summary {json.dumps(summary)}; phase seconds {json.dumps(seconds)}; "
         f"total {time.time() - t_start:.1f} s")
     print(smi)

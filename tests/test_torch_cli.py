@@ -123,10 +123,25 @@ def test_cli_loop_flags(tmp_path):
 
 
 def test_cli_mesh_is_not_ported(capsys):
+    """``--mesh`` runs synthetic sequences only, as the reference's: other
+    inputs exit with its error."""
     with pytest.raises(SystemExit):
-        main("--synthetic", "4", "--tiny", "--mesh", "2")
-    err = capsys.readouterr().err
-    assert "--mesh is not ported" in err and "item 11" in err
+        main("--tiny", "--mesh", "2")
+    assert "--mesh currently requires --synthetic" in capsys.readouterr().err
+
+
+def test_cli_mesh_lanes(tmp_path, capsys):
+    """``--mesh 2 --synthetic 4 --device cpu``: two gloo ranks, one lane
+    each; a TUM file and the reference's ATE / keyframes / loops line per
+    sequence."""
+    out = str(tmp_path / "out")
+    assert main("--synthetic", "4", "--tiny", "--mesh", "2", "--output", out) == 0
+    text = capsys.readouterr().out
+    for b in range(2):
+        rows = np.loadtxt(os.path.join(out, f"trajectory_tum_{b}.txt"))
+        assert rows.shape == (4, 8) and np.isfinite(rows).all()
+        assert f"sequence {b}: ATE" in text
+    assert "2 sequences x 4 frames" in text
 
 
 def test_cli_needs_a_gpu_unless_asked(tmp_path, monkeypatch):

@@ -30,6 +30,9 @@ from alego_tpu.models import pipeline as jpipe
 from alego_tpu.utils import synthetic
 
 from alego_tpu_torch.models import laser_mapping as tlm, pipeline as tpipe
+from alego_tpu_torch.parallel import ranks
+from alego_tpu_torch.parallel.distributed import DistributedSlamPipeline
+from alego_tpu_torch.parallel.launch import launch
 
 from test_torch_mapping import pallas_search
 from test_torch_odometry import assert_pose_close
@@ -111,9 +114,9 @@ def test_in_step_loop_cadence(sequence, reference_run, monkeypatch):
     calls = []
     real = tlm.loop_closure_step
 
-    def counted(ms, c):
+    def counted(ms, c, **kw):
         calls.append(int(pipe._frame))
-        return real(ms, c)
+        return real(ms, c, **kw)
 
     monkeypatch.setattr(tlm, "loop_closure_step", counted)
     pipe = tpipe.SlamPipeline(cfg.replace(loop_in_step=True), device="cpu")
@@ -152,6 +155,11 @@ def test_port_imports_no_reference():
         "import alego_tpu_torch.cli, alego_tpu_torch.utils.rosbag, alego_tpu_torch.utils.io\n"
         "import alego_tpu_torch.utils.viewer, alego_tpu_torch.utils.profiling\n"
         "import alego_tpu_torch.runtime.io_native, alego_tpu_torch.ops.deskew\n"
+        "import alego_tpu_torch.utils.sensor_sim, alego_tpu_torch.parallel.comm\n"
+        "import alego_tpu_torch.parallel.launch, alego_tpu_torch.parallel.map_shard\n"
+        "import alego_tpu_torch.parallel.schur, alego_tpu_torch.parallel.sharded_mapping\n"
+        "import alego_tpu_torch.parallel.multichip, alego_tpu_torch.parallel.distributed\n"
+        "import alego_tpu_torch.parallel.ranks\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'alego_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
@@ -167,7 +175,11 @@ def test_no_silent_cpu(cfg, monkeypatch):
         tpipe.SlamPipeline(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpipe.init_state(cfg)
-    with pytest.raises(NotImplementedError, match="sequential sector picker"):
-        tpipe.slam_step(tpipe.init_state(cfg, "cpu"), torch.zeros((8, 3)),
-                        torch.zeros(8, dtype=torch.bool), torch.tensor(0.0),
-                        cfg.replace(parallel_sectors=False))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DistributedSlamPipeline(cfg, device="cuda")
+    # a card but fewer than the ranks asked for over NCCL: the launcher of
+    # the pipeline's ranks refuses before it starts them
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="4 ranks over NCCL need 4 cards, but only 1"):
+        launch(ranks.distributed_run, 4, cfg, "frames", device="cuda")

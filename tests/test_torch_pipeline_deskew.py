@@ -98,9 +98,9 @@ def _count_attempts(monkeypatch):
     calls = []
     real = tlm.loop_closure_step
 
-    def counted(ms, c):
+    def counted(ms, c, **kw):
         calls.append(1)
-        return real(ms, c)
+        return real(ms, c, **kw)
     monkeypatch.setattr(tlm, "loop_closure_step", counted)
     return calls
 
