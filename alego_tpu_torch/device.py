@@ -38,8 +38,9 @@ def at(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 
 def vector(values, dtype, device) -> torch.Tensor:
     """A 1-D tensor of Python numbers on ``device``, written by fills: a
-    copy from the host would wait for the device's queue."""
+    copy from the host would wait for the device's queue (and so would
+    ``out[i] = v``, which copies a host scalar into a 0-dim view)."""
     out = torch.empty(len(values), dtype=dtype, device=device)
     for i, v in enumerate(values):
-        out[i] = float(v)
+        out[i].fill_(float(v))
     return out

@@ -28,7 +28,10 @@ _libs: dict = {}
 
 # Launches per kernel ("ccl", "nn1", "knn"): each wrapper adds one where it
 # launches its kernel and nowhere else, so a run can show that its path went
-# through the kernels.  ``LAUNCHES.clear()`` resets every count.
+# through the kernels.  ``LAUNCHES.clear()`` resets every count.  A frame
+# replayed from a CUDA graph runs no wrapper: ``models.step_graph`` takes
+# out what its warm-up and captures added (and keeps it) and adds the
+# captured launches at each replay.
 LAUNCHES: collections.Counter = collections.Counter()
 
 

@@ -3,7 +3,8 @@
 
 * the local map is the voxel-merged window of the last
   ``recent_keyframe_search_num`` keyframes (LM.cpp:351-388, the
-  loop-closure mode), rebuilt only when a keyframe was added; with
+  loop-closure mode), replaced only when a keyframe was added (built on
+  every mapping frame and selected on the device); with
   ``loop_closure_enabled=False`` it is the K nearest keyframes within
   ``surround_keyframe_search_radius`` of the predicted pose (LM.cpp:390-458,
   the radius mode), rebuilt on every mapping frame;
@@ -231,23 +232,27 @@ def _write_row(store: torch.Tensor, k: torch.Tensor, write: torch.Tensor,
 def mapping_step(ms: MappingState, T_odom2laser: torch.Tensor,
                  corner_pts, corner_valid, surf_pts, surf_valid,
                  outlier_pts, outlier_valid, time: torch.Tensor,
-                 cfg: PipelineConfig, assoc=None, read=bool):
+                 cfg: PipelineConfig, assoc=None):
     """One mapping frame. Returns (new_state, T_map2laser).  The keyframe
-    store of ``ms`` is written in place.
+    store of ``ms`` is written in place.  Nothing is read on the host.
 
-    ``assoc``: the 5-NN association (see :func:`_scan_to_map`); ``read``:
-    how the host reads the rebuild flag (``Comm.read`` on several ranks)."""
+    ``assoc``: the 5-NN association (see :func:`_scan_to_map`)."""
     T_pred = ms.T_map2odom @ T_odom2laser
 
-    # loop-closure mode: the cached local map is rebuilt only after a
-    # keyframe was added, one flag read per mapping frame decides it on the
-    # host; radius mode: the surround set follows the predicted pose, so the
-    # map is rebuilt on every mapping frame (LM.cpp:452-457), with no read
-    if not cfg.loop_closure_enabled or read(ms.map_dirty):
-        mc, mco, msf, msfo = _build_local_map(ms, cfg, T_pred)
-        ms = ms._replace(map_corner=mc, map_corner_valid=mco,
-                         map_surf=msf, map_surf_valid=msfo)
-    ms = ms._replace(map_dirty=torch.zeros_like(ms.map_dirty))
+    # loop-closure mode: the cached local map is replaced only after a
+    # keyframe was added (the reference's lax.cond on map_dirty): the map is
+    # built on every mapping frame and selected on the device; it does not
+    # depend on T_pred, so the selection is the rebuild, bit for bit.
+    # Radius mode: the surround set follows the predicted pose, so the map
+    # is rebuilt on every mapping frame (LM.cpp:452-457)
+    mc, mco, msf, msfo = _build_local_map(ms, cfg, T_pred)
+    if cfg.loop_closure_enabled:
+        d = ms.map_dirty
+        mc, msf = torch.where(d, mc, ms.map_corner), torch.where(d, msf, ms.map_surf)
+        mco = torch.where(d, mco, ms.map_corner_valid)
+        msfo = torch.where(d, msfo, ms.map_surf_valid)
+    ms = ms._replace(map_corner=mc, map_corner_valid=mco, map_surf=msf,
+                     map_surf_valid=msfo, map_dirty=torch.zeros_like(ms.map_dirty))
     c_ds, c_ok, s_ds, s_ok, o_ds, o_ok, st_ds, st_ok = _downsample_scan(
         corner_pts, corner_valid, surf_pts, surf_valid,
         outlier_pts, outlier_valid, cfg)
@@ -263,7 +268,7 @@ def mapping_step(ms: MappingState, T_odom2laser: torch.Tensor,
 
     # saveKeyFramesAndFactor (LM.cpp:636-704); squared-distance gate quirk kept
     count = ms.graph.count
-    last_t = ms.graph.poses[torch.clamp(count - 1, min=0).long()][:3, 3]
+    last_t = at(ms.graph.poses, torch.clamp(count - 1, min=0))[:3, 3]
     moved = torch.sum((T_new[:3, 3] - last_t) ** 2) >= cfg.min_keyframe_dist_sq
     is_kf = (count == 0) | moved
     write = is_kf & ~(count >= cfg.max_keyframes)

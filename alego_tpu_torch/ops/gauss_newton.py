@@ -6,7 +6,10 @@ falls to ``param_tol``) becomes a fixed ``iters``-long loop whose update is
 a masked no-op once the step has fallen below the tolerance: the same result
 with no host synchronisation.  ``torch.linalg.solve_ex`` replaces ``solve``,
 which would synchronise to raise on a singular system; ``gn_step`` already
-zeroes non-finite updates.
+zeroes non-finite updates.  The degeneracy projector's 6x6 symmetric
+eigendecomposition is a cyclic Jacobi with a fixed number of sweeps in
+torch ops (``torch.linalg.eigh`` checks its status on the host), so the
+whole solve can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from ..device import vector
 
 
 def huber_weight(r: torch.Tensor, delta: float) -> torch.Tensor:
@@ -51,13 +56,80 @@ def gn_step(params, r, J, weight, dim_mask, huber_delta: float,
     return params + torch.where(ok, delta, 0.0)
 
 
+# the 15 pairs of a 6x6 matrix in 5 rounds of 3 disjoint pairs (a
+# round-robin tournament): the rotations of a round commute, so each round
+# is one orthogonal matrix
+_JACOBI_ROUNDS = (((0, 1), (2, 5), (3, 4)), ((0, 2), (1, 3), (4, 5)),
+                  ((0, 3), (2, 4), (1, 5)), ((0, 4), (3, 5), (1, 2)),
+                  ((0, 5), (1, 4), (2, 3)))
+# sweeps of the cyclic Jacobi: convergence is quadratic; after 6 the
+# off-diagonal is below 1e-12 of the largest entry on spectra spread over
+# nine decades (tests/test_torch_graph_step.py)
+JACOBI_SWEEPS = 6
+_jacobi_tables: dict = {}
+
+
+def _jacobi_table(device: torch.device):
+    """Per round: the flat indices of (a_pp, a_qq, a_pq) of its 3 pairs
+    [9], and for the round's rotation J (flat [36]) the index of each entry
+    in the rotations' (cos, sin) pairs [6] with its sign (0 off the
+    pairs).  Built once per device by fills (never copied from the host)
+    and kept."""
+    tab = _jacobi_tables.get(device)
+    if tab is None:
+        tab = []
+        for pairs in _JACOBI_ROUNDS:
+            take = [p * 6 + p for p, _ in pairs] + [q * 6 + q for _, q in pairs] \
+                + [p * 6 + q for p, q in pairs]
+            src, sign = [0] * 36, [0.0] * 36
+            for k, (p, q) in enumerate(pairs):
+                src[p * 6 + p] = src[q * 6 + q] = 2 * k
+                src[p * 6 + q] = src[q * 6 + p] = 2 * k + 1
+                sign[p * 6 + p] = sign[q * 6 + q] = sign[p * 6 + q] = 1.0
+                sign[q * 6 + p] = -1.0
+            tab.append((vector(take, torch.int64, device),
+                        vector(src, torch.int64, device),
+                        vector(sign, torch.float64, device)))
+        _jacobi_tables[device] = tab
+    return tab
+
+
+def eigh6(A: torch.Tensor):
+    """Eigenvalues [6] and eigenvectors [6, 6] (columns) of a symmetric 6x6
+    matrix by cyclic Jacobi in f64: JACOBI_SWEEPS x 5 rounds, each annihilating
+    three disjoint off-diagonal pairs with the rotation of angle phi / 2,
+    phi = atan2(2 a_pq sgn(d), |d|), d = a_qq - a_pp (|angle| <= pi/4;
+    (cos, sin) of the half angle as the principal square root of
+    exp(i phi)).  14 small ops a round, no host synchronisation and no
+    data-dependent control flow.  Unordered, signs unspecified."""
+    A = A.to(torch.float64)
+    V = torch.eye(6, dtype=torch.float64, device=A.device)
+    one = torch.ones(3, dtype=torch.float64, device=A.device)
+    for _ in range(JACOBI_SWEEPS):
+        for take, src, sign in _jacobi_table(A.device):
+            app, aqq, apq = torch.take(A, take).reshape(3, 3)
+            d = aqq - app
+            # a_pq sgn(d): the sign of a_pq d on the magnitude of a_pq
+            y = torch.copysign(apq, apq * d)
+            phi = torch.atan2(y + y, torch.abs(d))
+            cs = torch.view_as_real(torch.sqrt(torch.polar(one, phi)))
+            J = (torch.take(cs, src) * sign).reshape(6, 6)
+            A = J.T @ A @ J
+            V = V @ J
+    return torch.diagonal(A), V
+
+
 def degeneracy_projector(H: torch.Tensor, eig_floor: float) -> torch.Tensor:
     """LOAM-style degeneracy guard P = V diag(lam > floor) V^T; a non-finite
-    H gives P = 0 (keep the warm start)."""
+    H gives P = 0 (keep the warm start).  The eigenvectors come from
+    :func:`eigh6` in f64 and P is formed in H's dtype, as the reference
+    forms it from its ``eigh``; only P is used, so the eigenvectors' order
+    and signs do not matter."""
     finite = torch.all(torch.isfinite(H))
     eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
-    lam, V = torch.linalg.eigh(torch.where(finite, H, eye))
-    keep = (lam > eig_floor).to(H.dtype) * finite.to(H.dtype)
+    lam, V = eigh6(torch.where(finite, H, eye))
+    V = V.to(H.dtype)
+    keep = ((lam > eig_floor) & finite).to(H.dtype)
     return (V * keep[None, :]) @ V.T
 
 
@@ -126,8 +198,4 @@ FULL_DIMS = (1, 1, 1, 1, 1, 1)      # scan-to-map 6-DoF
 def dims(mask: tuple, like: torch.Tensor) -> torch.Tensor:
     """A dim mask as a bool tensor on ``like``'s device, written by fills
     (``torch.tensor(..., device=cuda)`` would copy from the host and wait)."""
-    out = torch.zeros(len(mask), dtype=torch.bool, device=like.device)
-    for i, on in enumerate(mask):
-        if on:
-            out[i] = True
-    return out
+    return vector(mask, torch.bool, like.device)

@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import PipelineConfig, LaserType
-from ..device import const
+from ..device import at, const
 
 RAD2DEG = 180.0 / math.pi
 INVALID_RANGE = 1e9  # stands in for the reference's DBL_MAX empty-pixel marker
@@ -90,8 +90,8 @@ def project_scan(points: torch.Tensor, mask: torch.Tensor,
     mask_i = mask.to(torch.int32)
     first = torch.argmax(mask_i)
     last = n - 1 - torch.argmax(mask_i.flip(0))
-    start_ori = -torch.atan2(y[first], x[first])
-    end_ori = -torch.atan2(y[last], x[last]) + 2 * math.pi
+    start_ori = -torch.atan2(at(y, first), at(x, first))
+    end_ori = -torch.atan2(at(y, last), at(x, last)) + 2 * math.pi
     d = end_ori - start_ori
     end_ori = torch.where(d > 3 * math.pi, end_ori - 2 * math.pi,
                           torch.where(d < math.pi, end_ori + 2 * math.pi, end_ori))

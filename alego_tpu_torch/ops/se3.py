@@ -84,7 +84,7 @@ def params_to_mat(params: torch.Tensor) -> torch.Tensor:
                     device=params.device)
     T[..., :3, :3] = rpy_to_rot(params[..., 3:6])
     T[..., :3, 3] = params[..., :3]
-    T[..., 3, 3] = 1.0
+    T[..., 3, 3].fill_(1.0)
     return T
 
 
@@ -103,7 +103,7 @@ def inv_mat(T: torch.Tensor) -> torch.Tensor:
     out = torch.zeros_like(T)
     out[..., :3, :3] = Rt
     out[..., :3, 3] = -torch.einsum("...ij,...j->...i", Rt, T[..., :3, 3])
-    out[..., 3, 3] = 1.0
+    out[..., 3, 3].fill_(1.0)
     return out
 
 
@@ -196,7 +196,7 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     T = torch.zeros(xi.shape[:-1] + (4, 4), dtype=xi.dtype, device=xi.device)
     T[..., :3, :3] = so3_exp(phi)
     T[..., :3, 3] = torch.einsum("...ij,...j->...i", _so3_left_jacobian(phi), rho)
-    T[..., 3, 3] = 1.0
+    T[..., 3, 3].fill_(1.0)
     return T
 
 

@@ -4,9 +4,10 @@
 Connected components of the range image (the reference's BFS flood fill,
 IP.cpp:306-412) come from the CCL fixpoint (``ops/ccl.py``: the CUDA kernel
 on the GPU, its plain version on the CPU).  Component validity
-(IP.cpp:378-397) is counted with ``bincount`` in place of the TPU's
-sort-and-scan; it gives the same verdict per pixel.  Compaction into the
-ring-major layout (IP.cpp:254-287) is a stable sort on the keep key whose
+(IP.cpp:378-397) is counted by a scatter-add into a fixed [N + 1] buffer
+in place of the TPU's sort-and-scan; it gives the same verdict per pixel
+(``bincount`` would read the label maximum back to the host).  Compaction
+into the ring-major layout (IP.cpp:254-287) is a stable sort on the keep key whose
 order then gathers the payloads.
 """
 
@@ -70,6 +71,14 @@ def label_components(img: RangeImage, cfg: PipelineConfig):
     return _component_stats(labels, segmentable, cfg)
 
 
+def component_sizes(labels: torch.Tensor, n: int) -> torch.Tensor:
+    """Pixels per label: int64 [n] counts of ``labels`` (int64 in [0, n)),
+    a scatter-add into a fixed buffer; ``torch.bincount`` on the card reads
+    the largest label back to the host to size its output."""
+    sizes = torch.zeros(n, dtype=torch.int64, device=labels.device)
+    return sizes.index_add_(0, labels, torch.ones_like(labels))
+
+
 def _component_stats(labels: torch.Tensor, segmentable: torch.Tensor,
                      cfg: PipelineConfig):
     """Segment validity (IP.cpp:378-397): a component is kept when it has
@@ -78,7 +87,7 @@ def _component_stats(labels: torch.Tensor, segmentable: torch.Tensor,
     R, H = labels.shape
     N = R * H
     lab = torch.where(segmentable, labels, N).long()       # N = no component
-    sizes = torch.bincount(lab.reshape(-1), minlength=N + 1)
+    sizes = component_sizes(lab.reshape(-1), N + 1)
     present = torch.zeros((R, N + 1), dtype=torch.bool, device=labels.device)
     present.scatter_(1, lab, True)
     rings = present.sum(0)

@@ -7,10 +7,10 @@
   (``parallel/map_shard``);
 * loop closure's pose-graph solves run on the distributed Schur solver
   (``parallel/schur``);
-* every host branch (the mapping gate's rebuild flag, the loop gate, ICP's
-  early stop, the rescue and solve branches, the compaction check) is read
-  on rank 0 and broadcast (``Comm.read``), so the ranks enter the same
-  collectives.
+* every host branch (the loop gate, ICP's early stop, the rescue and solve
+  branches, the compaction check) is read on rank 0 and broadcast
+  (``Comm.read``), so the ranks enter the same collectives; the mapping
+  step reads nothing on the host.
 
 :class:`DistributedSlamPipeline` is ``SlamPipeline`` with those three hooks,
 so the frame's math and the host cadences are the single-device ones in the
@@ -19,6 +19,10 @@ attempt every ``loop_every_n_frames`` frames (inside the step with
 ``loop_in_step=True``, which is the reference's distributed cadence;
 hoisted after the frame with ``loop_in_step=False``, as ``SlamPipeline``
 runs it), and ``compact_keyframes`` near capacity every 16 frames.
+
+Unlike ``SlamPipeline`` on the card, the step runs eagerly (no CUDA
+graphs): its association is a collective, and the in-step loop attempt's
+host branches are broadcasts.  It writes into the same static state.
 """
 
 from __future__ import annotations
@@ -39,7 +43,10 @@ class DistributedSlamPipeline(SlamPipeline):
     distributed over the ranks of ``comm`` (one instance per rank, all fed
     the same scans; ``parallel.launch`` starts the ranks and checks that an
     NCCL group has a card per rank).  The API is ``SlamPipeline``'s.
-    Outside a process group ``comm`` is a group of one."""
+    Outside a process group ``comm`` is a group of one.  The frame step
+    runs eagerly on every device (its hooks are collectives)."""
+
+    _graphed = False
 
     def __init__(self, cfg: PipelineConfig, comm: Optional[Comm] = None, device=None,
                  dtype=torch.float32):

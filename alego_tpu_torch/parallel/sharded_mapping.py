@@ -54,7 +54,7 @@ def make_sharded_mapping_step(cfg: PipelineConfig, comm: Comm):
              outlier_pts, outlier_valid, time):
         return lm.mapping_step(ms, T_odom2laser, corner_pts, corner_valid, surf_pts,
                                surf_valid, outlier_pts, outlier_valid, time, cfg,
-                               assoc=assoc, read=comm.read)
+                               assoc=assoc)
 
     return step
 

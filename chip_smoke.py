@@ -16,10 +16,19 @@ phase prints its seconds):
 2. build: every kernel of ``alego_tpu_torch/csrc`` with ``nvcc`` (one
    process per source, all started together);
 3. the main path: ``SlamPipeline(PipelineConfig(loop_in_step=False))``
-   over the first 32 frames of the 192-frame closed bench circuit, with the
-   kernel launch counts asserted (counts set to 0 just before the timed
-   pass), finite poses, and ATE against ground truth held at its known
-   value (the kernels are exact; no loop can close in 32 frames);
+   over the first 32 frames of the 192-frame closed bench circuit, its
+   frame step replayed from CUDA graphs (as in every single-card phase
+   below), with the kernel launch counts asserted (counts set to 0 just
+   before the timed pass), finite poses, and ATE against ground truth held
+   at its known value (the kernels are exact; no loop can close in 32
+   frames);
+   ``graph_step``: the same 32 frames through the graphed pipeline and
+   through an eager loop of ``slam_step`` on the card, held against each
+   other (launches and keyframes equal, every pose within 1e-5 m), each
+   with its ms/frame, host syncs per frame, device busy ms/frame and idle
+   share (``torch.profiler``), capture seconds and peak MiB; and the
+   device time, in a graph, of the pieces the capture added: the local-map
+   build on every mapping frame and the Jacobi degeneracy projector;
 4. the loop path: the same pipeline over the whole circuit, where the hoisted
    loop-closure attempts (ICP on the 1-NN kernel, the acceptance gate on the
    k = 1 k-NN kernel, the pose-graph solve) must close the card's known
@@ -42,9 +51,8 @@ phase prints its seconds):
 7. a few frames with ``loop_in_step=True`` (the attempt inside the step);
 8. the radius-mode local map (``loop_closure_enabled=False``): the first 32
    frames through ``run_scanned`` in two chunks of 16, launch counts and the
-   ATE held, and the host synchronisations per frame against the main
-   path's config under ``torch.profiler`` (radius mode rebuilds the map on
-   every mapping frame without reading ``map_dirty``);
+   ATE held, and no host synchronisation inside a captured frame, in radius
+   mode and in the main path's config (``torch.profiler``);
 9. de-skew at tiny size, card against CPU, with an IMU stream and with
    odometry (``add_odom``), and a checkpoint saved, loaded and continued on
    the card;
@@ -99,6 +107,11 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
 N_FRAMES = 32          # frames of the main-path run
+# graph_step: the graphed and the eager step over the main path's frames
+# agree within this (m): the f64 voxel sums are atomics, whose order can
+# move a pose by ~1e-7 m from run to run
+GRAPH_POSE_TOL_M = 1e-5
+PROFILE_FRAMES = 8     # frames under torch.profiler in graph_step
 # the main path's unaligned ATE over those frames; the kernels are exact, so
 # a kernel change must leave it where it is
 ATE_M, ATE_TOL_M = 0.1207, 1e-4
@@ -124,18 +137,24 @@ RADIUS_ATE_M = 0.120703
 IMU_HZ, IMU_RPY_SIGMA, IMU_ACC_SIGMA, IMU_SEED = 40, float(np.radians(0.3)), 0.05, 7
 # the replay's answer on the card (runs repeat it): loop factors, and the
 # unaligned ATE (m) of the CLI's TUM trajectory with de-skew and of the same
-# skewed frames through run_scanned without it
+# skewed frames through run_scanned without it.  The degeneracy projector's
+# eigendecomposition (a fixed-sweep Jacobi in place of torch.linalg.eigh,
+# which cannot be captured) moved both ATEs from 0.67855 / 0.94204: with
+# the old projector this tree gives those to the last digit, and a 1e-7
+# perturbation of the projector moves them as far
+# (tools/projector_attribution.py); the loop factors did not move
 DESKEW_PAIRS = [(95, 0)]
-DESKEW_ATE_M, NO_DESKEW_ATE_M, DESKEW_ATE_TOL_M = 0.67855, 0.94204, 1e-3
+DESKEW_ATE_M, NO_DESKEW_ATE_M, DESKEW_ATE_TOL_M = 0.67994, 0.91965, 1e-3
 # the single map on MESH_RANKS ranks sharing the card: the reference's bars
 # against the single-device run (tests/test_distributed_pipeline.py), and
 # the card's own answer (runs repeat it to the last digit): the loop
 # factors and the unaligned ATE (m) of the streamed and corrected keyframe
-# poses, held like the loop path's
+# poses, held like the loop path's (moved from 0.32286 / 0.38900 by the
+# projector's eigendecomposition, as the replay's above)
 MESH_RANKS = 4
 MESH_TRAJ_TOL_M = MESH_ATE_TOL_M = 5e-2
 MESH_LOOP_PAIRS = [(87, 0), (89, 0), (92, 0), (94, 0)]
-MESH_ATE_M, MESH_KF_ATE_M = 0.32286, 0.38900
+MESH_ATE_M, MESH_KF_ATE_M = 0.32270, 0.39085
 N_LANE = 32           # frames of each --mesh lane
 # timing: the median over *_WINDOWS windows of *_REPS back-to-back calls
 KERNEL_WINDOWS, KERNEL_REPS = 21, 5
@@ -430,10 +449,137 @@ def phase_main_path(cfg, gt, pts, mask):
     ms_frame = total_s / n * 1e3
     log(f"main path: {n} frames in {total_s:.3f} s = {ms_frame:.3f} ms/frame "
         f"(host clock, one synchronise at the end), ATE {ate:.6f} m "
-        f"(unaligned), {n_kf} keyframes, peak memory {peak:.1f} MiB")
+        f"(unaligned), {n_kf} keyframes, peak memory {peak:.1f} MiB, graphs "
+        f"captured in {pipe.graphs.capture_seconds:.3f} s")
     assert abs(ate - ATE_M) <= ATE_TOL_M, f"ATE {ate:.5f} m moved from {ATE_M} m"
     return pipe.state, launches, dict(frames=n, ms_per_frame=ms_frame, ate_m=ate,
-                                      keyframes=n_kf, peak_mib=peak)
+                                      keyframes=n_kf, peak_mib=peak,
+                                      capture_s=pipe.graphs.capture_seconds)
+
+
+def eager_steps(cfg, pts_d, mask_d, n=None):
+    """An eager loop of ``slam_step`` on the card over the first ``n``
+    frames (all by default) from ``init_state``, the frames already on the
+    device: the step as it runs without graphs.  Returns (state, poses)."""
+    import torch
+    from alego_tpu_torch.models.pipeline import init_state, slam_step
+
+    st, out = init_state(cfg, "cuda"), []
+    for k in range(pts_d.shape[0] if n is None else n):
+        t = torch.full((), k * cfg.scan_period, device="cuda")
+        st, pose = slam_step(st, pts_d[k], mask_d[k], t, cfg,
+                             do_map_static=k % cfg.map_frame_decimation == 0,
+                             do_loop_static=False)
+        out.append(pose)
+    return st, torch.stack(out)
+
+
+def _graph_ms(fn, reps=10):
+    """Device ms of one call of ``fn``, replayed from a CUDA graph of
+    ``reps`` calls (warmed up on the capture stream first)."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            fn()
+    return _median_ms(graph.replay, windows=11, reps=1) / reps
+
+
+def phase_graph_step(cfg, pts, mask):
+    """The main path's frames through the graphed ``SlamPipeline`` and
+    through :func:`eager_steps`, held against each other: launch and
+    keyframe counts equal (no loop attempt can run in them), every pose
+    within GRAPH_POSE_TOL_M.  For both: ms/frame of a timed pass (host
+    clock, one synchronise at the end, after a warm-up pass that also
+    captures the graphs), and over the first PROFILE_FRAMES frames under
+    ``torch.profiler`` the host syncs and graph launches per frame and the
+    device busy ms/frame, whose idle share is against the timed pass (the
+    graphed pipeline's syncs there are the hoisted loop gate's reads after
+    frame 4: its frames read nothing, as phase 8 asserts);
+    capture seconds; peak MiB (allocated, capture included, and reserved).
+    Then the device ms, in a graph, of a local-map build (the capture builds
+    it on every mapping frame and selects it on the device) and of one
+    degeneracy projector (two per mapping frame)."""
+    import torch
+    from alego_tpu_torch import kernels
+    from alego_tpu_torch.models import laser_mapping as lm
+    from alego_tpu_torch.models.pipeline import SlamPipeline
+    from alego_tpu_torch.ops.gauss_newton import degeneracy_projector
+    from alego_tpu_torch.utils.profiling import device_window
+
+    n, m = pts.shape[0], PROFILE_FRAMES
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = SlamPipeline(cfg, device="cuda")
+    pipe.run(pts, mask)                           # captures the graphs
+    pipe.reset()
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.clear()
+    wall = timed_pass(pipe, pts, mask)
+    launches = dict(kernels.LAUNCHES)
+    est_g = torch.stack(pipe.poses)
+    kf_g, attempts = int(pipe.state.mapping.graph.count), int(pipe.state.mapping.loop_attempts)
+    pipe.reset()
+    win = device_window(lambda: [pipe.process(pts[k], mask[k]) for k in range(m)])
+    out["graphed"] = dict(
+        ms_per_frame=wall / n * 1e3, launches=launches, keyframes=kf_g,
+        capture_s=pipe.graphs.capture_seconds,
+        captured_launches={("map" if k else "no_map"): v for k, v in pipe.graphs.launches.items()},
+        peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+        reserved_mib=torch.cuda.max_memory_reserved() / 2 ** 20)
+    rng = np.random.default_rng(0)
+    A = rng.normal(size=(6, 6))
+    H = torch.as_tensor(A @ A.T * 100.0, dtype=torch.float32, device="cuda")
+    out["local_map_build_ms"] = _graph_ms(lambda: lm._build_local_map(pipe.state.mapping, cfg))
+    out["projector_ms"] = _graph_ms(lambda: degeneracy_projector(H, cfg.map_eig_floor))
+    # two projectors per mapping frame, one mapping frame in map_frame_decimation
+    out["projector_ms_per_frame"] = (out["projector_ms"] * cfg.map_outer_iters
+                                     / cfg.map_frame_decimation)
+    del pipe
+    torch.cuda.empty_cache()
+
+    pts_d, mask_d = torch.as_tensor(pts, device="cuda"), torch.as_tensor(mask, device="cuda")
+    eager_steps(cfg, pts_d, mask_d, 2)            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.LAUNCHES.clear()
+    t0 = time.time()
+    st_e, est_e = eager_steps(cfg, pts_d, mask_d)
+    torch.cuda.synchronize()
+    wall_e = time.time() - t0
+    launches_e = dict(kernels.LAUNCHES)
+    kf_e = int(st_e.mapping.graph.count)
+    out["eager"] = dict(ms_per_frame=wall_e / n * 1e3, launches=launches_e, keyframes=kf_e,
+                        capture_s=None, peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+                        reserved_mib=torch.cuda.max_memory_reserved() / 2 ** 20)
+    win_e = device_window(lambda: eager_steps(cfg, pts_d, mask_d, m))
+    for way, w in (("graphed", win), ("eager", win_e)):
+        busy = w["device_busy_ms"] / m
+        out[way].update(host_syncs_per_frame=w["syncs"] / m,
+                        graph_launches_per_frame=w["graph_launches"] / m,
+                        device_ops_per_frame=w["device_ops"] / m,
+                        device_busy_ms_per_frame=busy,
+                        device_idle_share=1.0 - busy / out[way]["ms_per_frame"])
+
+    diff = (est_g - est_e).abs()
+    out["max_pose_diff_m"] = float(diff[:, :3, 3].max())
+    out["max_rot_diff"] = float(diff[:, :3, :3].max())
+    log(f"graph_step: {json.dumps(out)}")
+    assert attempts == 0, "a loop attempt ran in the main path's frames"
+    assert launches == launches_e, f"launches {launches} (graphed) != {launches_e} (eager)"
+    assert kf_g == kf_e, f"keyframes {kf_g} (graphed) != {kf_e} (eager)"
+    assert out["max_pose_diff_m"] <= GRAPH_POSE_TOL_M, \
+        f"graphed and eager poses {out['max_pose_diff_m']} m apart"
+    assert win["graph_launches"] == m, f"{win['graph_launches']} graph launches in {m} frames"
+    assert win["device_busy_ms"] > 0 and win_e["device_busy_ms"] > 0, "no device time traced"
+    return out
 
 
 def phase_cpu_agreement():
@@ -743,30 +889,27 @@ def render_skewed(cfg, n_frames):
     return poses[:n_frames], pts, mask, imu
 
 
-def _host_syncs(cfg, pts, mask):
-    """Host synchronisations of ``run_scanned`` over the frames from a fresh
-    pipeline, under ``torch.profiler``: the runtime calls that block the
-    host, as tools/profile_step.py counts them (read from the raw trace,
-    which is ~40x quicker than ``prof.events()``)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _frame_syncs(cfg, pts, mask):
+    """``device_window`` of ``process`` over the frames, from a pipeline
+    that captured its graphs in a pass over the same frames and was reset:
+    no hoisted loop gate, compaction or overflow check falls in the window,
+    so what it counts is the frames' own."""
     from alego_tpu_torch.models.pipeline import SlamPipeline
+    from alego_tpu_torch.utils.profiling import device_window
 
-    sync_calls = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                  "cudaEventSynchronize", "cudaMemcpy")
     pipe = SlamPipeline(cfg, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.run_scanned(pts, mask)
-    return sum(1 for ev in prof.profiler.kineto_results.events() if ev.name() in sync_calls)
+    pipe.run(pts, mask)
+    pipe.reset()
+    return device_window(lambda: [pipe.process(pts[k], mask[k]) for k in range(len(pts))])
 
 
 def phase_radius_path(cfg, gt, pts, mask):
     """``loop_closure_enabled=False``: the local map is the K nearest
     keyframes within the search radius, rebuilt on every mapping frame.
     Two chunks of 16 through ``run_scanned``, counted (counts set to 0 just
-    before) and timed; then host synchronisations per frame of the radius
-    and the main-path config over the first 2 frames (one mapping frame)."""
+    before) and timed; then the host synchronisations and graph launches of
+    the radius and the main-path config over the first 2 frames (one
+    mapping frame)."""
     import torch
     from alego_tpu_torch import kernels
     from alego_tpu_torch.models.pipeline import SlamPipeline
@@ -787,17 +930,18 @@ def phase_radius_path(cfg, gt, pts, mask):
     assert np.isfinite(est).all(), "non-finite pose"
     ate = ate_rmse(est[:, :3, 3], gt[:, :3, 3], align=False)
     m = 2
-    syncs = {"radius": _host_syncs(cfg_r, pts[:m], mask[:m]),
-             "main_path": _host_syncs(cfg, pts[:m], mask[:m])}
+    wins = {"radius": _frame_syncs(cfg_r, pts[:m], mask[:m]),
+            "main_path": _frame_syncs(cfg, pts[:m], mask[:m])}
     res = dict(frames=n, ms_per_frame=total_s / n * 1e3, ate_m=ate,
                keyframes=int(pipe.state.mapping.graph.count), launches=launches,
-               host_syncs_per_frame={k: v / m for k, v in syncs.items()})
+               host_syncs_per_frame={k: w["syncs"] / m for k, w in wins.items()},
+               graph_launches_per_frame={k: w["graph_launches"] / m for k, w in wins.items()})
     log(f"radius path: {json.dumps(res)}")
     assert launches == expected, f"launch counts {launches} != {expected}"
-    # the main path reads map_dirty once per mapping frame; radius mode
-    # rebuilds without that read, and the two are otherwise the same
-    n_map_m = -(-m // cfg.map_frame_decimation)
-    assert syncs["radius"] > 0 and syncs["main_path"] - syncs["radius"] == n_map_m, syncs
+    # a captured frame reads nothing on the host, in either mode: each frame
+    # is one graph launch and no synchronisation
+    for k, w in wins.items():
+        assert w["syncs"] == 0 and w["graph_launches"] == m, (k, w["syncs"], w["graph_launches"])
     assert abs(ate - RADIUS_ATE_M) <= ATE_TOL_M, f"ATE {ate:.6f} m moved from {RADIUS_ATE_M} m"
     return res
 
@@ -1295,6 +1439,7 @@ def main(argv=None):
 
     state, launches, summary = phase("main_path", phase_main_path, cfg, gt[:N_FRAMES],
                                      pts[:N_FRAMES], mask[:N_FRAMES])
+    graph_step = phase("graph_step", phase_graph_step, cfg, pts[:N_FRAMES], mask[:N_FRAMES])
     loop_summary, loop_inputs, loop_est = phase("loop_path", phase_loop_path, cfg, gt, pts,
                                                 mask)
     # the kernels are checked on the frames and the local map of the 32-frame
@@ -1322,7 +1467,8 @@ def main(argv=None):
     del pts, mask          # the skewed frames take their place in host memory
     gt_s, pts_s, mask_s, imu = phase("render_skewed", render_skewed, cfg, N_CIRCUIT)
     replay = phase("deskew_path", phase_deskew_path, cfg, gt_s, pts_s, mask_s, imu)
-    summary.update(radius_path=radius, deskew_path=replay, mesh_nccl1=nccl1,
+    summary.update(graph_step=graph_step, radius_path=radius, deskew_path=replay,
+                   mesh_nccl1=nccl1,
                    mesh_single_map=single_map, mesh_lanes=lanes, mesh_solver=solver)
     log(f"summary {json.dumps(summary)}; phase seconds {json.dumps(seconds)}; "
         f"total {time.time() - t_start:.1f} s")
