@@ -44,3 +44,13 @@ def vector(values, dtype, device) -> torch.Tensor:
     for i, v in enumerate(values):
         out[i].fill_(float(v))
     return out
+
+
+def fixed_loop(body, carry: tuple, n: int) -> tuple:
+    """``n`` iterations of ``carry = body(carry)`` (a tuple of tensors): the
+    loops of fixed length that take a ``loop`` hook (ICP's iterations, the
+    pose-graph solve's GN iterations), where ``loop_graph`` passes one that
+    captures ``body`` once and replays it."""
+    for _ in range(n):
+        carry = body(carry)
+    return carry

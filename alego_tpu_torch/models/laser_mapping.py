@@ -20,8 +20,11 @@
   bird's-eye-view alignment, the structure-inlier acceptance gate on the
   k = 1 k-NN kernel, two consistency gates, and the factored pose-graph
   solve from two initialisations; ``compact_keyframes`` thins old keyframes
-  near capacity.  Where the reference branches with ``lax.cond``, the host
-  reads the device flag (each read is listed where it happens).
+  near capacity.  The reference's ``lax.cond``s inside an attempt (the
+  rescue, the solve) are predicated selects here: both branches run and
+  the device picks, so an attempt reads nothing on the host and can be
+  captured in a CUDA graph (``loop_graph``).  Only the attempt's own gate
+  is read (``loop_closure_step``): a gated-off call launches nothing.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import PipelineConfig
-from ..device import at, const
+from ..device import at, const, fixed_loop
 from ..ops import se3
 from ..ops.knn import knn_best as knn
 from ..ops.voxel import voxel_downsample, voxel_downsample_exact, compact_masked
@@ -461,11 +464,12 @@ def _smear(g: pg.PoseGraph, correction, closest, latest):
     return torch.einsum("nij,njk->nik", D, g.poses)
 
 
-def _close(ms: MappingState, res: ICPResult, weight, closest, latest,
+def _close(ms: MappingState, res: ICPResult, weight, closest, latest, accept,
            cfg: PipelineConfig, solve, energy):
-    """Add the loop factor and solve (LM.cpp:862-882).  Returns
-    (state, committed) with committed a device bool: the post-solve chain
-    bend gate rolls the whole change back on the device, no host read."""
+    """Add the loop factor and solve (LM.cpp:862-882), taken where
+    ``accept``.  Returns (state, committed) with committed a device bool:
+    the reference's ``lax.cond(accept, close, ...)`` and its post-solve
+    chain bend gate are both selects on the device, no host read."""
     g = ms.graph
     pose_latest = at(g.poses, latest)
     rel = se3.inv_mat(res.transform @ pose_latest) @ at(g.poses, closest)
@@ -480,10 +484,10 @@ def _close(ms: MappingState, res: ICPResult, weight, closest, latest,
     g0, g1 = solve(g_raw), solve(g_sm)
     g_new = _pick(energy(g1) < energy(g0), g1, g0)
     # correctPoses map2odom rebase (LM.cpp:725-726); the local map is stale
-    new = dict(graph=g_new, T_map2odom=res.transform @ ms.T_map2odom,
+    new = dict(T_map2odom=res.transform @ ms.T_map2odom,
                T_map2laser=at(g_new.poses, latest),
                map_dirty=torch.ones_like(ms.map_dirty))
-    committed = torch.ones_like(ms.map_dirty)
+    committed = accept
     if cfg.loop_chain_bend_max > 0:
         # no chain link may bend beyond its odometry's plausible range, in
         # translation or rotation; a factor the chain refuses is rolled back
@@ -496,19 +500,21 @@ def _close(ms: MappingState, res: ICPResult, weight, closest, latest,
         bend_r = torch.acos(torch.clamp(cos_r, -1.0, 1.0))
         rot_max = (torch.full((), cfg.loop_chain_bend_max_rot_deg, dtype=bend_r.dtype,
                               device=bend_r.device) * const(math.pi / 180, bend_r))
-        committed = ((torch.max(torch.where(link, bend_t, 0.0)) <= cfg.loop_chain_bend_max)
+        committed = (accept
+                     & (torch.max(torch.where(link, bend_t, 0.0)) <= cfg.loop_chain_bend_max)
                      & (torch.max(torch.where(link, bend_r, 0.0)) <= rot_max))
-        new = dict(graph=_pick(committed, g_new, g),
-                   **{k: torch.where(committed, v, getattr(ms, k))
-                      for k, v in new.items() if k != "graph"})
-    return ms._replace(**new), committed
+    return ms._replace(graph=_pick(committed, g_new, g),
+                       **{k: torch.where(committed, v, getattr(ms, k))
+                          for k, v in new.items()}), committed
 
 
-def _attempt(ms: MappingState, closest, latest, cfg: PipelineConfig, solve, energy, read):
+def _attempt(ms: MappingState, closest, latest, cfg: PipelineConfig, solve, energy, loop):
     """One loop attempt against candidate ``closest``: (state, closed,
-    fitness, inlier_frac).  Host reads (through ``read``): one per ICP
-    iteration, one for the rescue branch (with ``loop_coarse_align``), one
-    for the solve branch."""
+    fitness, inlier_frac), with no host read.  The rescue (with
+    ``loop_coarse_align``) and the close always run; the device takes the
+    rescue's result where the identity attempt failed the gate, and the
+    close's state where the attempt is accepted, as the reference's
+    ``lax.cond``s pick.  ``loop`` runs both ICPs' iterations."""
     pose_latest = at(ms.graph.poses, latest)
     # raw (unfiltered) source cloud: getFitnessScore averages over raw
     # source points, and the gate is calibrated on them
@@ -520,19 +526,20 @@ def _attempt(ms: MappingState, closest, latest, cfg: PipelineConfig, solve, ener
     tgt, tgt_ok = _history_cloud(ms, closest, latest, cfg)
 
     res = icp_point_to_point(src_i, src_i_ok, tgt, tgt_ok, cfg.icp_iters,
-                             cfg.icp_max_corr_dist, cfg.icp_translation_eps, read=read)
+                             cfg.icp_max_corr_dist, cfg.icp_translation_eps, loop=loop)
     accept, weight, inlier_frac = _loop_acceptance(res, src, src_ok, tgt, tgt_ok, cfg)
-    if cfg.loop_coarse_align and not read(accept):
+    if cfg.loop_coarse_align:
         # wide-basin rescue: a bird's-eye structure correlation recovers
-        # (yaw, dx, dy, dz) globally, then a short ICP refines
+        # (yaw, dx, dy, dz) globally, then a short ICP refines; its result
+        # counts only where the identity attempt failed the gate
         ba = bev_align(src, src_ok, tgt, tgt_ok, pose_latest[:2, 3],
                        at(ms.graph.poses, closest)[:2, 3], grid=cfg.loop_bev_grid,
                        res=cfg.loop_bev_res, n_yaw=cfg.loop_bev_yaws)
         res_b = icp_point_to_point(src_i, src_i_ok, tgt, tgt_ok,
                                    min(cfg.icp_iters, cfg.loop_rescue_icp_iters),
                                    cfg.icp_max_corr_dist, cfg.icp_translation_eps,
-                                   T0=ba.transform, read=read)
-        res = _pick(res_b.converged & (res_b.fitness < res.fitness), res_b, res)
+                                   T0=ba.transform, loop=loop)
+        res = _pick(~accept & res_b.converged & (res_b.fitness < res.fitness), res_b, res)
         accept, weight, inlier_frac = _loop_acceptance(res, src, src_ok, tgt, tgt_ok, cfg)
 
     # consistency gate 1 (pre-solve): the correction may move the latest pose
@@ -542,44 +549,61 @@ def _attempt(ms: MappingState, closest, latest, cfg: PipelineConfig, solve, ener
         disp = torch.linalg.vector_norm((res.transform @ pose_latest)[:3, 3] - pose_latest[:3, 3])
         accept = accept & (disp <= cfg.loop_max_correction_abs
                            + cfg.loop_max_correction_frac * path_cl)
-    if not read(accept):
-        return ms, accept, res.fitness, inlier_frac
-    ms, committed = _close(ms, res, weight, closest, latest, cfg, solve, energy)
-    return ms, committed, res.fitness, inlier_frac
+    ms, closed = _close(ms, res, weight, closest, latest, accept, cfg, solve, energy)
+    return ms, closed, res.fitness, inlier_frac
 
 
-def loop_closure_step(ms: MappingState, cfg: PipelineConfig, graph_optimizer=None,
-                      graph_energy_fn=None, read=bool):
-    """performLoopClosure: returns (new_state, closed, fitness).
+def loop_gate(ms: MappingState, cfg: PipelineConfig):
+    """(do, closest, latest) on the device: an attempt runs when a
+    candidate exists, the latest keyframe was not tried yet, and the graph
+    has two nodes (the reference's ``lax.cond(do, attempt, skip)``)."""
+    found, closest, latest = detect_loop(ms, cfg)
+    return found & (latest != ms.last_loop_kf) & (ms.graph.count > 1), closest, latest
 
-    One host read decides whether an attempt runs (a candidate exists, the
-    latest keyframe was not tried yet, and the graph has two nodes); a
-    gated-off call launches nothing.
 
-    ``graph_optimizer(graph) -> graph`` replaces the single-device solve
-    (``parallel/sharded_mapping`` passes the distributed Schur solver);
-    ``graph_energy_fn(graph) -> scalar`` is the objective that picks
-    between the two initialisations, by default the single-device one at
-    ``cfg.pose_graph_chain_sigma``, which the Schur solver minimises too.
-    ``read(flag) -> bool`` is how the host reads each device flag it
-    branches on (``Comm.read`` on several ranks)."""
+def loop_attempt(ms: MappingState, closest, latest, cfg: PipelineConfig,
+                 graph_optimizer=None, graph_energy_fn=None, loop=fixed_loop):
+    """The attempt of :func:`loop_closure_step` past its gate, against the
+    candidate of :func:`loop_gate`, with the attempt counters: returns
+    (new_state, closed, fitness) and reads nothing on the host (the body
+    that ``loop_graph.LoopAttemptGraph`` captures).  The optimiser hooks
+    are :func:`loop_closure_step`'s; ``loop`` runs the ICPs' iterations
+    and the default optimiser's GN iterations (``device.fixed_loop``'s
+    contract; ``LoopAttemptGraph`` passes its own)."""
     sigma = cfg.pose_graph_chain_sigma
     if graph_optimizer is None:
         def graph_optimizer(g):
-            return pg.optimize(g, sigma, iters=cfg.pose_graph_gn_iters)
+            return pg.optimize(g, sigma, iters=cfg.pose_graph_gn_iters, loop=loop)
     if graph_energy_fn is None:
         def graph_energy_fn(g):
             return pg.graph_energy(g, sigma)
-    found, closest, latest = detect_loop(ms, cfg)
-    do = found & (latest != ms.last_loop_kf) & (ms.graph.count > 1)
-    if not read(do):
-        return (ms, torch.zeros_like(do),
-                torch.full((), 1e9, dtype=ms.T_map2odom.dtype, device=do.device))
     ms, closed, fitness, inlier = _attempt(ms, closest, latest, cfg, graph_optimizer,
-                                           graph_energy_fn, read)
+                                           graph_energy_fn, loop)
     ms = ms._replace(
         last_loop_kf=latest.to(torch.int32),
         loop_attempts=ms.loop_attempts + 1,
         loop_best_fitness=torch.minimum(ms.loop_best_fitness, fitness),
         loop_best_inlier=torch.maximum(ms.loop_best_inlier, inlier))
     return ms, closed, fitness
+
+
+def loop_closure_step(ms: MappingState, cfg: PipelineConfig, graph_optimizer=None,
+                      graph_energy_fn=None, read=bool):
+    """performLoopClosure: returns (new_state, closed, fitness).
+
+    One host read, ``read(do)``, decides whether an attempt runs
+    (:func:`loop_gate`); a gated-off call launches nothing.  The attempt
+    itself (:func:`loop_attempt`) reads nothing.
+
+    ``graph_optimizer(graph) -> graph`` replaces the single-device solve
+    (``parallel/sharded_mapping`` passes the distributed Schur solver);
+    ``graph_energy_fn(graph) -> scalar`` is the objective that picks
+    between the two initialisations, by default the single-device one at
+    ``cfg.pose_graph_chain_sigma``, which the Schur solver minimises too.
+    ``read(flag) -> bool`` is how the host reads the gate (``Comm.read`` on
+    several ranks)."""
+    do, closest, latest = loop_gate(ms, cfg)
+    if not read(do):
+        return (ms, torch.zeros_like(do),
+                torch.full((), 1e9, dtype=ms.T_map2odom.dtype, device=do.device))
+    return loop_attempt(ms, closest, latest, cfg, graph_optimizer, graph_energy_fn)

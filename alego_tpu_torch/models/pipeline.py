@@ -18,8 +18,10 @@ captured in a CUDA graph.
 each frame writes its results back into them (the counterpart of the
 reference's ``donate_argnums=0``), and so does every update between frames
 (loop attempts, compaction, IMU input, reset, checkpoint loads).  On the
-card the frame step is replayed from CUDA graphs (``step_graph``); on the
-CPU the same step runs eagerly.  It feeds scans one by one (``process``) or
+card the frame step is replayed from CUDA graphs (``step_graph``), and the
+loop attempt, once the host has read its gate, from its own
+(``loop_graph``); on the CPU both run eagerly.  It feeds scans one by one
+(``process``) or
 in chunks (``run_scanned``, the CLI's streaming path: the reference's
 ``lax.scan`` becomes a host loop over the chunk with the mapping gate taken
 from the frame phase the host knows), buffers IMU samples host-side,
@@ -311,10 +313,13 @@ class SlamPipeline:
     card the frame step (front half and, on mapping frames, the mapping
     step) replays CUDA graphs captured at the first frame
     (``step_graph.StepGraphs``: no host sync inside a frame, no eager
-    fallback: a step that cannot be captured raises); the loop attempt,
-    compaction and the overflow check stay eager between frames, with
-    their host reads.  Assigning ``state`` adopts the given tree as the
-    static state (the graphs are captured again at the next frame).
+    fallback: a step that cannot be captured raises), and the loop attempt,
+    hoisted or in-step, replays the graph captured at the first attempt
+    whose gate passes (``loop_graph.LoopAttemptGraph``, in the step graphs'
+    memory pool) after one host read of that gate; compaction and the
+    overflow check stay eager between frames, with one host read each.
+    Assigning ``state`` adopts the given tree as the static state (the
+    graphs are captured again when next needed).
 
     ``collect_odom_poses`` (debug only) keeps each frame's ``T_odom2laser``
     of the ``process`` path in ``odom_poses`` as numpy, one host read per
@@ -341,6 +346,7 @@ class SlamPipeline:
         self._state = None
         self._inputs = FrameInputs(self.device, dtype)
         self.graphs = None     # step_graph.StepGraphs, captured at the first frame
+        self.loop_graph = None  # loop_graph.LoopAttemptGraph, at the first attempt
         self.reset()
         self._l2b = (tf_l2b(cfg, self._state.T_odom2laser) if any(cfg.tf_b2l)
                      else None)
@@ -354,7 +360,7 @@ class SlamPipeline:
     def state(self, new: SlamState):
         _check_layout(self._state, new)
         self._state = new
-        self.graphs = None
+        self.graphs = self.loop_graph = None
 
     def _commit(self, new: SlamState):
         commit(self._state, new)
@@ -396,10 +402,21 @@ class SlamPipeline:
             self._overflow_warned = True
 
     def _loop_attempt(self):
-        """One ``loop_closure_step`` on the state's map, committed."""
-        self._commit(self._state._replace(mapping=lm.loop_closure_step(
-            self._state.mapping, self.cfg, graph_optimizer=self._graph_optimizer,
-            read=self._read)[0]))
+        """One ``loop_closure_step`` on the state's map, committed.  On the
+        card: the gate read on the host, then, if it passes, the attempt
+        replayed from its graph (captured here at the first such call)."""
+        ms = self._state.mapping
+        if not (self._graphed and self.device.type == "cuda"):
+            self._commit(self._state._replace(mapping=lm.loop_closure_step(
+                ms, self.cfg, graph_optimizer=self._graph_optimizer, read=self._read)[0]))
+            return
+        if not self._read(lm.loop_gate(ms, self.cfg)[0]):
+            return
+        if self.loop_graph is None:
+            from .loop_graph import LoopAttemptGraph
+            self.loop_graph = LoopAttemptGraph(
+                ms, self.cfg, pool=None if self.graphs is None else self.graphs.pool)
+        self.loop_graph.replay()
 
     def _maybe_loop(self, frames_advanced: int):
         """Hoisted loop-closure attempt (``loop_in_step=False``): run

@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..device import vector
+from ..device import fixed_loop, vector
 from ..ops import se3
 from ..ops.chain_solver import chain_solve
 
@@ -203,12 +203,15 @@ def _gn_parts(g: PoseGraph, sigma: torch.Tensor):
     info[0] = torch.where(g.count > 0, info_c, torch.ones(6, dtype=dtype, device=dev))
 
     # ---- gradient b = J^T Info r over all factors ----
+    # accumulated by index_put_, which adds the duplicates of an index in
+    # their order on the card too (index_add_'s atomics would not: the
+    # loops that share node 0 would make a solve differ from run to run)
     w_c = row_chain.to(dtype)
     WJi = (-Jr_c @ Ad_c) * (w_c[:, None, None] * info_c[None, :, None])
     WJj = Jr_c * (w_c[:, None, None] * info_c[None, :, None])
     b = torch.zeros((N, 6), dtype=dtype, device=dev)
-    b.index_add_(0, prev, torch.einsum("nki,nk->ni", WJi, r_c))
-    b.index_add_(0, idx, torch.einsum("nki,nk->ni", WJj, r_c))
+    b.index_put_((prev,), torch.einsum("nki,nk->ni", WJi, r_c), accumulate=True)
+    b.index_put_((idx,), torch.einsum("nki,nk->ni", WJj, r_c), accumulate=True)
     r_p = se3.se3_log(se3.inv_mat(g.chain_rel[0]) @ g.poses[0])
     b[0] += info_c * w_p * r_p
 
@@ -217,8 +220,8 @@ def _gn_parts(g: PoseGraph, sigma: torch.Tensor):
     r_l, Jr_l, Ad_l = _between_parts(g.poses[li], g.poses[lj], g.loop_rel)
     Ji_l = -Jr_l @ Ad_l
     w_l = _loop_weights(g)
-    b.index_add_(0, li, torch.einsum("lki,lk->li", Ji_l, r_l) * w_l[:, None])
-    b.index_add_(0, lj, torch.einsum("lki,lk->li", Jr_l, r_l) * w_l[:, None])
+    b.index_put_((li,), torch.einsum("lki,lk->li", Ji_l, r_l) * w_l[:, None], accumulate=True)
+    b.index_put_((lj,), torch.einsum("lki,lk->li", Jr_l, r_l) * w_l[:, None], accumulate=True)
 
     # Vs[n, :, l, :] += J_l^T sqrt(w_l) at n = loop_i[l] and n = loop_j[l];
     # built as [N, L, 6, 6] (inactive slots add zeros at node 0)
@@ -267,7 +270,8 @@ def _factored_solver(Ad, Jr, info, Vs):
     return solve
 
 
-def optimize(g: PoseGraph, chain_sigma, iters: int, max_step: float = MAX_STEP) -> PoseGraph:
+def optimize(g: PoseGraph, chain_sigma, iters: int, max_step: float = MAX_STEP,
+             loop=fixed_loop) -> PoseGraph:
     """Production GN: factored O(N) chain solve + low-rank loop fold-in,
 
         delta = -(T + Vs Vs^T)^{-1} b
@@ -278,12 +282,15 @@ def optimize(g: PoseGraph, chain_sigma, iters: int, max_step: float = MAX_STEP) 
     is assembled in f64, solved in f32, and one f64 residual
     ``-b - (T + Vs Vs^T) delta`` is solved again in f32 and added.  A global
     trust-region scale keeps every node's step within ``max_step``.
-    ``iters`` GN iterations, no early stop."""
+    ``iters`` GN iterations, no early stop, run by ``loop``
+    (``device.fixed_loop``'s contract) over the poses."""
     dtype, dev = g.poses.dtype, g.poses.device
     active = torch.arange(g.poses.shape[0], device=dev) < g.count
     sigma = vector(chain_sigma, torch.float64, dev)
-    for _ in range(iters):
-        g64 = g._replace(poses=g.poses.double(), chain_rel=g.chain_rel.double(),
+
+    def iteration(carry):
+        poses, = carry
+        g64 = g._replace(poses=poses.double(), chain_rel=g.chain_rel.double(),
                          loop_rel=g.loop_rel.double(), loop_w=g.loop_w.double())
         Ad, Jr, info, b, Vs = _gn_parts(g64, sigma)
         solve32 = _factored_solver(Ad.float(), Jr.float(), info.float(), Vs.float())
@@ -292,9 +299,11 @@ def optimize(g: PoseGraph, chain_sigma, iters: int, max_step: float = MAX_STEP) 
         delta = (delta + solve32(-res.float()).double()).to(dtype)
         step = torch.clamp(torch.max(torch.abs(delta)), min=1e-12)
         delta = delta * torch.clamp(torch.full_like(step, max_step) / step, max=1.0)
-        upd = g.poses @ se3.se3_exp(delta)
-        g = g._replace(poses=torch.where(active[:, None, None], upd, g.poses))
-    return g
+        upd = poses @ se3.se3_exp(delta)
+        return torch.where(active[:, None, None], upd, poses),
+
+    poses, = loop(iteration, (g.poses,), iters)
+    return g._replace(poses=poses)
 
 
 def graph_energy(g: PoseGraph, chain_sigma) -> torch.Tensor:

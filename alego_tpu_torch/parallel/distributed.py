@@ -7,10 +7,10 @@
   (``parallel/map_shard``);
 * loop closure's pose-graph solves run on the distributed Schur solver
   (``parallel/schur``);
-* every host branch (the loop gate, ICP's early stop, the rescue and solve
-  branches, the compaction check) is read on rank 0 and broadcast
-  (``Comm.read``), so the ranks enter the same collectives; the mapping
-  step reads nothing on the host.
+* every host branch (the loop attempt's gate, the compaction check) is
+  read on rank 0 and broadcast (``Comm.read``), so the ranks enter the same
+  collectives; the mapping step and the loop attempt past its gate read
+  nothing on the host.
 
 :class:`DistributedSlamPipeline` is ``SlamPipeline`` with those three hooks,
 so the frame's math and the host cadences are the single-device ones in the
@@ -21,8 +21,9 @@ hoisted after the frame with ``loop_in_step=False``, as ``SlamPipeline``
 runs it), and ``compact_keyframes`` near capacity every 16 frames.
 
 Unlike ``SlamPipeline`` on the card, the step runs eagerly (no CUDA
-graphs): its association is a collective, and the in-step loop attempt's
-host branches are broadcasts.  It writes into the same static state.
+graphs), and so does its loop attempt: its association and solve are
+collectives, and the attempt's gate is a broadcast.  It writes into the
+same static state.
 """
 
 from __future__ import annotations

@@ -31,12 +31,17 @@ phase prints its seconds):
    build on every mapping frame and the Jacobi degeneracy projector;
 4. the loop path: the same pipeline over the whole circuit, where the hoisted
    loop-closure attempts (ICP on the 1-NN kernel, the acceptance gate on the
-   k = 1 k-NN kernel, the pose-graph solve) must close the card's known
+   k = 1 k-NN kernel, the pose-graph solve), each one host read of its gate
+   and a replay of the attempt's CUDA graphs (one per ICP and GN iteration
+   besides the five around those loops), must close the card's known
    loops, with its number of attempts, no loop factor rejected at capacity,
    and the ATE over the 192 frames and over the corrected keyframe path at
    its known values; one run as a user drives it (counted, counts set to 0
-   just before it, and timed) and one that records each attempt's
-   candidate pair, kernel launches and host seconds;
+   just before it, and timed: launches in the attempts as the config gives
+   them, peak MiB, capture seconds) and one that holds each replayed
+   attempt bit for bit against ``loop_closure_step`` run eagerly on a copy
+   of its state, and records its candidate pair, launches, host reads and
+   seconds both ways (and writes a checkpoint for phase 7);
 5. kernels against their plain PyTorch versions on the card, at the shapes
    the frame step gives them at the full default geometry, fed from the
    32-frame run's last two frames and the local map it built (CCL also on a
@@ -48,7 +53,11 @@ phase prints its seconds):
    CPU (the CPU path is what the tests hold against the JAX reference), and
    tiny-config ``loop_closure_step`` on the card against the CPU on the loop
    scene of the tests, from identity and through the bird's-eye-view rescue;
-7. a few frames with ``loop_in_step=True`` (the attempt inside the step);
+7. ``in_step``: a few frames with ``loop_in_step=True`` (the attempt after
+   the frame's replay, gated off), then phase 4's checkpoint resumed in
+   that mode to the circuit's end: its attempts replay the loop graph, each
+   held bit for bit against the eager attempt, with one host sync (the
+   gate) and the loop graph's graph launches each (``torch.profiler``);
 8. the radius-mode local map (``loop_closure_enabled=False``): the first 32
    frames through ``run_scanned`` in two chunks of 16, launch counts and the
    ATE held, and no host synchronisation inside a captured frame, in radius
@@ -84,8 +93,10 @@ phase prints its seconds):
    ranks against the single-card ``optimize`` at the reference test's bar
    (tests/test_schur.py, ``test_distributed_fixed_point_at_2048``).
 
-The last lines of standard output are the card's ``nvidia-smi`` name and
-power limit, one JSON object with a row per kernel, and
+Timings print beside the card's ``nvidia-smi`` name and power limit (the
+environment phase's line and the final summary's ``card``).  The last
+lines of standard output are the card's ``nvidia-smi`` name and power
+limit, one JSON object with a row per kernel, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -126,6 +137,9 @@ LOOP_PAIRS = [(87, 0), (89, 0), (92, 0), (94, 0)]
 LOOP_ATTEMPTS = 4
 LOOP_ATE_M, LOOP_KF_ATE_M, LOOP_ATE_TOL_M = 0.32287, 0.39098, 1e-3
 N_IN_STEP = 6          # frames of the loop_in_step=True run
+# the in-step mode resumes the loop path's recorded run from its checkpoint
+# after this frame, before the first attempt that passes its gate
+IN_STEP_FROM = 150
 # the radius-mode run over the first N_FRAMES frames (two chunks of 16): its
 # unaligned ATE, held like the main path's.  It equals ATE_M: all of those
 # keyframes lie within the search radius, and the port's f64 voxel sums do
@@ -203,6 +217,7 @@ def phase_environment():
     log(_run([kernels.nvcc(), "--version"]))
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
+    log(f"card: {smi.splitlines()[0]}")
     log(f"device: {torch.cuda.get_device_name(0)}, count "
         f"{torch.cuda.device_count()}, capability "
         f"{torch.cuda.get_device_capability(0)}")
@@ -601,49 +616,50 @@ def phase_cpu_agreement():
     return dt
 
 
-class _AttemptLog:
-    """Records each loop-closure attempt of a run: wraps
-    ``laser_mapping.loop_closure_step`` (one host sync before and after each
-    call, outside the kernels), and keeps the loop searches' inputs of the
-    latest attempt for the kernel rows.  Kernel launches are counted by the
-    kernel wrappers only, as everywhere."""
+def attempt_launches(cfg):
+    """The kernel launches of one loop attempt past its gate, from the
+    config: every ICP iteration and each ICP's fitness pass search once
+    (the masked loop runs its whole budget), the rescue's ICP included, and
+    the acceptance gate scores the identity result and the picked one."""
+    rescue = min(cfg.icp_iters, cfg.loop_rescue_icp_iters) + 1 if cfg.loop_coarse_align else 0
+    return {"nn1": cfg.icp_iters + 1 + rescue, "knn": 2 if cfg.loop_coarse_align else 1}
 
-    def __init__(self):
+
+class _AttemptLog:
+    """Records each loop-closure attempt of ``pipe`` (graphed on the card):
+    wraps its ``_loop_attempt``.  Where the gate passes (read once more, by
+    the recorder), ``loop_closure_step`` first runs eagerly on a copy of the
+    mapping state (its launches taken out of the counts again, its search
+    inputs kept for the kernel rows), then the pipeline's own attempt (the
+    gate's read and the graph's replay; its first call also captures); each
+    is timed with one synchronise before and after it, and its host reads
+    are counted (``read``).  The replayed state must equal the eager one,
+    leaf by leaf, bit for bit.  With ``profile``, each replayed attempt but
+    the one that captures runs under ``device_window`` (syncs and graph
+    launches; its seconds then include the profiler's)."""
+
+    def __init__(self, pipe, profile=False):
         import torch
         from alego_tpu_torch import kernels
-        from alego_tpu_torch.models import laser_mapping as lm
+        from alego_tpu_torch.models import laser_mapping as lm, pipeline
         from alego_tpu_torch.ops import icp
         self.torch, self.kernels, self.lm, self.icp = torch, kernels, lm, icp
+        self.pipeline, self.pipe, self.profile = pipeline, pipe, profile
         self.attempts, self.inputs = [], {}
-        self._real = (lm.loop_closure_step, icp._nn1, lm.knn)
+        self._real = (pipe._loop_attempt, icp._nn1, lm.knn)
 
-    def __enter__(self):
-        lm, icp = self.lm, self.icp
-        real_step, real_nn1, real_knn = self._real
-
-        def step(ms, cfg, **kw):
-            found, closest, latest = lm.detect_loop(ms, cfg)
-            n0 = int(ms.loop_attempts)
-            before = dict(self.kernels.LAUNCHES)
-            self.torch.cuda.synchronize()
-            t0 = time.time()
-            self._first_nn1 = True
-            out = real_step(ms, cfg, **kw)
-            self.torch.cuda.synchronize()
-            dt = time.time() - t0
-            if int(out[0].loop_attempts) != n0:
-                after = self.kernels.LAUNCHES
-                self.attempts.append(dict(
-                    latest=int(latest), closest=int(closest), closed=bool(out[1]),
-                    fitness=float(out[2]), inlier=float(out[0].loop_best_inlier),
-                    nn1=after["nn1"] - before.get("nn1", 0),
-                    knn=after["knn"] - before.get("knn", 0), seconds=dt))
-            return out
+    def _eager(self, ms, cfg):
+        """``loop_closure_step`` on a copy of ``ms``, its searches' inputs
+        kept: (state, closed, fitness, seconds, launches, reads)."""
+        import collections
+        torch, lm, icp, kernels = self.torch, self.lm, self.icp, self.kernels
+        _, real_nn1, real_knn = self._real
+        first = []
 
         def nn1(q, qm, r, rm):
-            if self._first_nn1:     # the identity ICP's first search
+            if not first:           # the identity ICP's first search
                 self.inputs["nn1"] = tuple(t.clone() for t in (q, qm, r, rm))
-                self._first_nn1 = False
+                first.append(True)
             return real_nn1(q, qm, r, rm)
 
         def knn(q, qm, r, rm, k):
@@ -651,12 +667,79 @@ class _AttemptLog:
                 self.inputs["knn"] = tuple(t.clone() for t in (q, qm, r, rm))
             return real_knn(q, qm, r, rm, k)
 
-        lm.loop_closure_step, icp._nn1, lm.knn = step, nn1, knn
-        self._first_nn1 = False
+        copy = self.pipeline._unflatten(ms, [t.clone() for _, t in self.pipeline._flatten(ms)])
+        reads, out = [], []
+        icp._nn1, lm.knn = nn1, knn
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            mark = collections.Counter(kernels.LAUNCHES)
+            out.extend(lm.loop_closure_step(copy, cfg,
+                                            read=lambda f: reads.append(f) or bool(f)))
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+        finally:
+            icp._nn1, lm.knn = real_nn1, real_knn
+        launches = dict(kernels.LAUNCHES - mark)
+        kernels.LAUNCHES.clear()
+        kernels.LAUNCHES.update(mark)
+        return tuple(out) + (dt, launches, len(reads))
+
+    def _attempt(self):
+        from alego_tpu_torch.utils.profiling import device_window
+        torch, kernels, lm, pipe = self.torch, self.kernels, self.lm, self.pipe
+        real = self._real[0]
+        ms, cfg = pipe.state.mapping, pipe.cfg
+        do, closest, latest = lm.loop_gate(ms, cfg)
+        if not bool(do):
+            return real()
+        want, closed, fitness, eager_s, eager_launches, eager_reads = self._eager(ms, cfg)
+        reads = []
+        pipe._read = lambda f: reads.append(f) or bool(f)
+        captured = pipe.loop_graph is None
+        before = dict(kernels.LAUNCHES)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            win = None
+            if self.profile and not captured:
+                win = device_window(real)
+            else:
+                real()
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+        finally:
+            del pipe._read
+        g = pipe.loop_graph
+        launches = {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items()
+                    if v != before.get(k, 0)}
+        diff = [p for (p, a), (_, b) in zip(self.pipeline._flatten(pipe.state.mapping),
+                                            self.pipeline._flatten(want))
+                if not torch.equal(a, b)]
+        rec = dict(frame=pipe._frame, latest=int(latest), closest=int(closest),
+                   closed=bool(g.closed), fitness=float(g.fitness),
+                   inlier=float(pipe.state.mapping.loop_best_inlier), launches=launches,
+                   seconds=dt, capture_s=g.capture_seconds if captured else None,
+                   replay_s=dt - g.capture_seconds if captured else dt, host_reads=len(reads),
+                   eager_seconds=eager_s, eager_launches=eager_launches,
+                   eager_host_reads=eager_reads, state_equal=not diff,
+                   closed_equal=torch.equal(g.closed, closed),
+                   fitness_equal=torch.equal(g.fitness, fitness))
+        if win is not None:
+            rec.update(syncs=win["syncs"], graph_launches=win["graph_launches"])
+        elif self.profile:
+            rec.update(syncs=None, graph_launches=None)
+        self.attempts.append(rec)
+        log(f"loop attempt: {json.dumps(rec)}")
+        assert not diff, f"replayed and eager attempts differ in {diff}"
+        assert rec["closed_equal"] and rec["fitness_equal"], "closed or fitness differ"
+
+    def __enter__(self):
+        self.pipe._loop_attempt = self._attempt
         return self
 
     def __exit__(self, *exc):
-        self.lm.loop_closure_step, self.icp._nn1, self.lm.knn = self._real
+        del self.pipe._loop_attempt
 
 
 def _loop_results(pipe, gt):
@@ -697,12 +780,15 @@ def _check_loop_results(res, what):
 def _counted_loop_run(cfg, gt, pts, mask):
     """The whole circuit through ``SlamPipeline`` with hoisted loop closure
     as a user drives it, nothing wrapped: counted (counts set to 0 just
-    before it) and timed, with one synchronise at the end.  Its summary,
-    checked, and its poses."""
+    before it) and timed, with one synchronise at the end (ms/frame also
+    without the step graphs' and the loop graph's captures, which this run
+    pays).  Its summary, checked, and its poses."""
     import torch
     from alego_tpu_torch import kernels
     from alego_tpu_torch.models.pipeline import SlamPipeline
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     pipe = SlamPipeline(cfg, device="cuda")
     kernels.LAUNCHES.clear()
     total_s = timed_pass(pipe, pts, mask)
@@ -714,42 +800,96 @@ def _counted_loop_run(cfg, gt, pts, mask):
     # the attempts' launches: all of the run's less the frame step's
     in_attempts = {"nn1": launches["nn1"] - 2 * max(cfg.odom_outer_iters, 1) * n,
                    "knn": launches["knn"] - 2 * cfg.map_outer_iters * n_map}
-    summary = dict(res, ms_per_frame=total_s / n * 1e3, launches=launches,
-                   attempt_launches_total=in_attempts)
+    per_attempt = attempt_launches(cfg)
+    captures_s = pipe.graphs.capture_seconds + pipe.loop_graph.capture_seconds
+    summary = dict(res, ms_per_frame=total_s / n * 1e3,
+                   ms_per_frame_less_captures=(total_s - captures_s) / n * 1e3,
+                   launches=launches, attempt_launches_total=in_attempts,
+                   launches_per_attempt=per_attempt,
+                   peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+                   step_capture_s=pipe.graphs.capture_seconds,
+                   loop_capture_s=pipe.loop_graph.capture_seconds,
+                   loop_graph_launches=pipe.loop_graph.launches,
+                   loop_graph_graph_launches=pipe.loop_graph.graph_launches)
     log(f"loop path: {json.dumps(summary)}")
     assert launches["ccl"] == n, f"ccl launches {launches['ccl']} != {n}"
     _check_loop_results(res, "loop path")
+    assert in_attempts == {k: v * LOOP_ATTEMPTS for k, v in per_attempt.items()}, \
+        f"attempt launches {in_attempts}, not {LOOP_ATTEMPTS} x {per_attempt}"
     return summary, est
 
 
-def phase_loop_path(cfg, gt, pts, mask):
+def _attempt_pieces_ms(cfg, pipe, inputs):
+    """Device ms, in a graph, of an attempt's pieces at the last attempt's
+    shapes: the identity ICP and the rescue's ICP (the whole masked
+    budget, on the identity ICP's inputs), the bird's-eye-view alignment
+    (on the acceptance gate's source and the history cloud), and one
+    pose-graph solve over the run's final graph (the attempt runs two)."""
+    import torch
+    from alego_tpu_torch.models import pose_graph as pg
+    from alego_tpu_torch.ops.bev_align import bev_align
+    from alego_tpu_torch.ops.icp import icp_point_to_point
+
+    src_i, src_i_ok, tgt, tgt_ok = inputs["nn1"]
+    src, src_ok = inputs["knn"][:2]
+    centre = torch.zeros(2, device="cuda")
+    g = pipe.state.mapping.graph
+
+    def icp(iters):
+        return lambda: icp_point_to_point(src_i, src_i_ok, tgt, tgt_ok, iters,
+                                          cfg.icp_max_corr_dist, cfg.icp_translation_eps)
+
+    return dict(
+        icp_ms=_graph_ms(icp(cfg.icp_iters), reps=2),
+        rescue_icp_ms=_graph_ms(icp(min(cfg.icp_iters, cfg.loop_rescue_icp_iters)), reps=2),
+        bev_align_ms=_graph_ms(lambda: bev_align(src, src_ok, tgt, tgt_ok, centre, centre,
+                                                 grid=cfg.loop_bev_grid, res=cfg.loop_bev_res,
+                                                 n_yaw=cfg.loop_bev_yaws)),
+        graph_solve_ms=_graph_ms(lambda: pg.optimize(g, cfg.pose_graph_chain_sigma,
+                                                     iters=cfg.pose_graph_gn_iters), reps=2))
+
+
+def phase_loop_path(cfg, gt, pts, mask, checkpoint):
     """The whole circuit through ``SlamPipeline`` with hoisted loop closure,
     twice.  The first run is the path as a user drives it, nothing wrapped:
     counted (counts set to 0 just before it) and timed, with one
-    synchronise at the end.  The second records each attempt (one
-    synchronise before and after it, its candidate, launches and host
-    seconds, and the last attempt's search inputs for the kernel rows); it
-    must give the first run's loops and attempts' launches."""
+    synchronise at the end; its attempts replay the loop graph.  The second
+    records each attempt (:class:`_AttemptLog`: the replayed attempt held
+    bit for bit against ``loop_closure_step`` run eagerly on a copy of the
+    same state, each timed, with its launches and host reads); it must give
+    the first run's loops and attempts' launches.  The second run also
+    writes ``checkpoint`` after frame IN_STEP_FROM, where phase ``in_step``
+    resumes."""
     from alego_tpu_torch.models.pipeline import SlamPipeline
 
     summary, est_first = _counted_loop_run(cfg, gt, pts, mask)
     in_attempts = summary["attempt_launches_total"]
     pipe = SlamPipeline(cfg, device="cuda")
-    with _AttemptLog() as rec:
-        timed_pass(pipe, pts, mask)
-    for a in rec.attempts:
-        log(f"loop attempt (recorded run): latest {a['latest']}, candidate {a['closest']}, "
-            f"closed {a['closed']}, fitness {a['fitness']:.6g}, best inlier fraction "
-            f"{a['inlier']:.4f}, launches nn1 {a['nn1']} knn {a['knn']}, "
-            f"{a['seconds']:.3f} s (synchronised before and after)")
+    with _AttemptLog(pipe) as rec:
+        timed_pass(pipe, pts[:IN_STEP_FROM], mask[:IN_STEP_FROM])
+        pipe.save_checkpoint(checkpoint)
+        timed_pass(pipe, pts[IN_STEP_FROM:], mask[IN_STEP_FROM:])
     _check_loop_results(_loop_results(pipe, gt), "recorded run")
     assert len(rec.attempts) == LOOP_ATTEMPTS, "an attempt went unrecorded"
-    recorded = {"nn1": sum(a["nn1"] for a in rec.attempts),
-                "knn": sum(a["knn"] for a in rec.attempts)}
+    assert all(a["frame"] > IN_STEP_FROM for a in rec.attempts), \
+        "an attempt passed its gate before the in-step phase's checkpoint"
+    per_attempt = summary["launches_per_attempt"]
+    for a in rec.attempts:
+        assert a["launches"] == a["eager_launches"] == per_attempt, \
+            f"attempt launches {a['launches']} / {a['eager_launches']} != {per_attempt}"
+        assert a["host_reads"] == 1 and a["eager_host_reads"] == 1, "reads besides the gate"
+    recorded = {k: sum(a["launches"][k] for a in rec.attempts) for k in per_attempt}
     assert recorded == in_attempts, f"attempt launches {recorded} != {in_attempts}"
     assert set(rec.inputs) == {"nn1", "knn"}, "an attempt ran without its searches"
-    summary.update(attempt_launches=[(a["nn1"], a["knn"]) for a in rec.attempts],
-                   attempt_seconds=[a["seconds"] for a in rec.attempts])
+    summary["attempt_pieces_ms"] = _attempt_pieces_ms(cfg, pipe, rec.inputs)
+    summary.update(
+        attempt_launches=[(a["launches"]["nn1"], a["launches"]["knn"]) for a in rec.attempts],
+        attempt_seconds=[a["seconds"] for a in rec.attempts],
+        attempt_replay_seconds=[a["replay_s"] for a in rec.attempts],
+        attempt_eager_seconds=[a["eager_seconds"] for a in rec.attempts],
+        attempt_capture_s=rec.attempts[0]["capture_s"],
+        host_reads_per_attempt=[a["host_reads"] for a in rec.attempts],
+        attempts_equal_eager=all(a["state_equal"] for a in rec.attempts))
     return summary, rec.inputs, est_first
 
 
@@ -834,31 +974,29 @@ def phase_loop_cpu_agreement():
     return worst
 
 
-def phase_in_step(cfg, pts, mask):
-    """``loop_in_step=True``: the attempt runs inside the step on its
-    cadence; over the first frames no candidate passes the age gate, so the
-    attempts launch nothing and the poses are the hoisted run's."""
+def phase_in_step(cfg, gt, pts, mask, checkpoint):
+    """``loop_in_step=True``: the attempt runs after the frame's graph
+    replay on its cadence.  Over the first N_IN_STEP frames no candidate
+    passes the age gate, so the attempts launch nothing and the poses are
+    the hoisted run's.  Then the recorded loop run's checkpoint (after frame
+    IN_STEP_FROM) resumed in the in-step mode to the circuit's end: each
+    attempt that passes its gate replays the loop graph (captured at the
+    first), held bit for bit against the eager attempt on a copy of its
+    state (:class:`_AttemptLog`; each attempt after the capturing one under
+    ``device_window``: one host sync, the gate's, and the loop graph's
+    graph launches)."""
     import torch
     from alego_tpu_torch import kernels
-    from alego_tpu_torch.models import laser_mapping as lm
     from alego_tpu_torch.models.pipeline import SlamPipeline
+    from alego_tpu_torch.utils.metrics import ate_rmse
 
     cfg_in = cfg.replace(loop_in_step=True)
-    calls = []
-    real = lm.loop_closure_step
-
-    def counted(ms, c, **kw):
-        calls.append(len(pipe.poses))
-        return real(ms, c, **kw)
-
     pipe = SlamPipeline(cfg_in, device="cuda")
-    lm.loop_closure_step = counted
-    try:
-        kernels.LAUNCHES.clear()
-        est = pipe.run(pts[:N_IN_STEP], mask[:N_IN_STEP])
-        launches = dict(kernels.LAUNCHES)
-    finally:
-        lm.loop_closure_step = real
+    calls = []
+    pipe._loop_attempt = lambda real=pipe._loop_attempt: calls.append(len(pipe.poses)) or real()
+    kernels.LAUNCHES.clear()
+    est = pipe.run(pts[:N_IN_STEP], mask[:N_IN_STEP])
+    launches = dict(kernels.LAUNCHES)
     ref = SlamPipeline(cfg, device="cuda").run(pts[:N_IN_STEP], mask[:N_IN_STEP])
     dt = float(np.abs(est[:, :3, 3] - ref[:, :3, 3]).max())
     n_map = -(-N_IN_STEP // cfg.map_frame_decimation)
@@ -869,7 +1007,45 @@ def phase_in_step(cfg, pts, mask):
     assert calls == list(range(0, N_IN_STEP, cfg.loop_every_n_frames)), calls
     assert launches == expected, f"launch counts {launches} != {expected}"
     assert dt < 1e-4, "in-step and hoisted runs disagree"
-    return dt
+    assert pipe.loop_graph is None, "a gated-off attempt captured the loop graph"
+
+    pipe = SlamPipeline(cfg_in, device="cuda")
+    pipe.load_checkpoint(checkpoint)
+    n = pts.shape[0] - IN_STEP_FROM
+    with _AttemptLog(pipe, profile=True) as rec:
+        kernels.LAUNCHES.clear()
+        wall = timed_pass(pipe, pts[IN_STEP_FROM:], mask[IN_STEP_FROM:])
+        launches = dict(kernels.LAUNCHES)
+    est = torch.stack(pipe.poses).cpu().numpy()
+    g = pipe.state.mapping.graph
+    n_loops = int(g.loop_count)
+    per_attempt = attempt_launches(cfg)
+    n_map = len(range(IN_STEP_FROM, pts.shape[0], cfg.map_frame_decimation))
+    k = len(rec.attempts)
+    expected = {"ccl": n, "nn1": 2 * max(cfg.odom_outer_iters, 1) * n + k * per_attempt["nn1"],
+                "knn": 2 * cfg.map_outer_iters * n_map + k * per_attempt["knn"]}
+    res = dict(frames=n, from_frame=IN_STEP_FROM, attempts=k,
+               attempt_frames=[a["frame"] for a in rec.attempts],
+               loops=n_loops, loop_pairs=[(int(i), int(j)) for i, j in zip(
+                   g.loop_i[:n_loops].tolist(), g.loop_j[:n_loops].tolist())],
+               launches=launches, recorded_ms_per_frame=wall / n * 1e3,
+               attempt_seconds=[a["seconds"] for a in rec.attempts],
+               attempt_eager_seconds=[a["eager_seconds"] for a in rec.attempts],
+               capture_s=pipe.loop_graph.capture_seconds if pipe.loop_graph else None,
+               syncs_per_attempt=[a["syncs"] for a in rec.attempts],
+               graph_launches_per_attempt=[a["graph_launches"] for a in rec.attempts],
+               ate_m=ate_rmse(est[:, :3, 3], gt[IN_STEP_FROM:, :3, 3], align=False))
+    log(f"in-step attempts from frame {IN_STEP_FROM}: {json.dumps(res)}")
+    # the first attempt captures (outside the profiler); the others replay
+    assert k >= 2, f"{k} in-step attempts passed their gates"
+    assert launches == expected, f"launch counts {launches} != {expected}"
+    assert np.isfinite(est).all(), "non-finite pose"
+    for a in rec.attempts:
+        assert a["launches"] == per_attempt and a["host_reads"] == 1, a
+    for a in rec.attempts[1:]:
+        assert a["syncs"] == 1 and a["graph_launches"] == pipe.loop_graph.graph_launches, \
+            f"an in-step attempt synchronised {a['syncs']} times in {a['graph_launches']} replays"
+    return res
 
 
 def render_skewed(cfg, n_frames):
@@ -1440,8 +1616,9 @@ def main(argv=None):
     state, launches, summary = phase("main_path", phase_main_path, cfg, gt[:N_FRAMES],
                                      pts[:N_FRAMES], mask[:N_FRAMES])
     graph_step = phase("graph_step", phase_graph_step, cfg, pts[:N_FRAMES], mask[:N_FRAMES])
+    checkpoint = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "in_step.npz")
     loop_summary, loop_inputs, loop_est = phase("loop_path", phase_loop_path, cfg, gt, pts,
-                                                mask)
+                                                mask, checkpoint)
     # the kernels are checked on the frames and the local map of the 32-frame
     # run, and at the loop shapes on the last attempt's inputs
     rows = phase("kernels", phase_kernels, cfg, pts[:N_FRAMES], mask[:N_FRAMES], state)
@@ -1450,7 +1627,9 @@ def main(argv=None):
     rows += phase("loop_kernels", phase_loop_kernels, loop_summary, loop_inputs)
     phase("cpu_agreement", phase_cpu_agreement)
     phase("loop_cpu_agreement", phase_loop_cpu_agreement)
-    phase("in_step", phase_in_step, cfg, pts, mask)
+    in_step = phase("in_step", phase_in_step, cfg, gt, pts, mask, checkpoint)
+    os.remove(checkpoint)
+    os.rmdir(os.path.dirname(checkpoint))
     radius = phase("radius_path", phase_radius_path, cfg, gt[:N_FRAMES], pts[:N_FRAMES],
                    mask[:N_FRAMES])
     phase("deskew_cpu_agreement", phase_deskew_cpu_agreement)
@@ -1467,7 +1646,8 @@ def main(argv=None):
     del pts, mask          # the skewed frames take their place in host memory
     gt_s, pts_s, mask_s, imu = phase("render_skewed", render_skewed, cfg, N_CIRCUIT)
     replay = phase("deskew_path", phase_deskew_path, cfg, gt_s, pts_s, mask_s, imu)
-    summary.update(graph_step=graph_step, radius_path=radius, deskew_path=replay,
+    summary.update(card=smi, graph_step=graph_step, loop_path=loop_summary, in_step=in_step,
+                   radius_path=radius, deskew_path=replay,
                    mesh_nccl1=nccl1,
                    mesh_single_map=single_map, mesh_lanes=lanes, mesh_solver=solver)
     log(f"summary {json.dumps(summary)}; phase seconds {json.dumps(seconds)}; "

@@ -1,5 +1,5 @@
-"""The frame step replayed from CUDA graphs, on the GPU.  Skipped without
-one (graph capture needs the card).
+"""The frame step and the loop-closure attempt replayed from CUDA graphs,
+on the GPU.  Skipped without one (graph capture needs the card).
 
 * a tiny-config 8-frame ``SlamPipeline`` run (graphed) against an eager
   loop of ``slam_step`` on the card: every pose within 1e-5 m (the f64
@@ -9,7 +9,15 @@ one (graph capture needs the card).
   replay, and the warm-up's and the captures' own launches are set apart;
 * the eager step makes no synchronising call (``set_sync_debug_mode``);
 * a step with a host read injected raises at capture: nothing falls back
-  to the eager step.
+  to the eager step;
+* on the loop scene of the CPU tests (twelve keyframes on a ring, the
+  latest revisiting keyframe 0; from identity and yawed by 75 degrees,
+  where only the bird's-eye-view rescue closes), the attempt replayed by
+  ``SlamPipeline`` equals ``loop_closure_step`` run eagerly on a copy of
+  the state, bit for bit, with one host read (the gate), the launches the
+  config gives and one graph launch per ICP and GN iteration besides the
+  five around those loops; the attempt past its gate makes no synchronising
+  call; a host read injected into it raises at capture.
 
 Like ``test_torch_kernels_gpu.py`` this file imports torch and numpy only,
 so it runs on the GPU machine:
@@ -21,7 +29,8 @@ import pytest
 import torch
 
 from alego_tpu_torch import kernels, tiny_config
-from alego_tpu_torch.models import pipeline as tpipe
+from alego_tpu_torch.models import laser_mapping as tlm, pipeline as tpipe
+from alego_tpu_torch.models import pose_graph as tpg
 from alego_tpu_torch.utils import synthetic
 
 
@@ -121,4 +130,107 @@ def test_host_read_in_the_step_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         pipe.process(pts[0], mask[0])
     assert pipe.graphs is None and pipe.poses == []
+    torch.cuda.synchronize()
+
+
+def _loop_scene(dev, yaw_deg=0.0):
+    """The loop scene of tests/test_sharded_mapping.py: twelve keyframes on
+    a 3 m ring, 10 s apart, each holding its view of two walls and a ground
+    patch, the latest revisiting keyframe 0 (turned by ``yaw_deg`` about z).
+    Returns (cfg, mapping state)."""
+    cfg = tiny_config(max_keyframes=64, loop_time_gap=30.0, history_search_num=3,
+                      history_fitness_score=0.1, icp_iters=40, loop_in_step=False)
+    rng = np.random.default_rng(4)
+    g = np.stack(np.meshgrid(np.linspace(-8, 8, 24), np.linspace(-8, 8, 24)), -1).reshape(-1, 2)
+    ground = np.concatenate([g, np.full((len(g), 1), -1.5)], 1)
+    w = np.stack(np.meshgrid(np.linspace(-8, 8, 24), np.linspace(-1.5, 2.5, 10)), -1).reshape(-1, 2)
+    walls = [np.stack([w[:, 0], np.full(len(w), 8.0), w[:, 1]], 1),
+             np.stack([np.full(len(w), -8.0), w[:, 0], w[:, 1]], 1)]
+    world = np.concatenate([ground] + walls).astype(np.float32)
+    world += rng.normal(0, 0.01, world.shape).astype(np.float32)
+    ring = synthetic.loop_trajectory(12, radius=3.0, closed=True).astype(np.float32)
+    c, s = np.cos(np.radians(yaw_deg)), np.sin(np.radians(yaw_deg))
+    Tz = np.eye(4, dtype=np.float32)
+    Tz[:2, :2] = [[c, -s], [s, c]]
+    ms = tlm.init_state(cfg, dev)
+    graph, yes = ms.graph, torch.ones((), dtype=torch.bool, device=dev)
+    for k in range(12):
+        local = (world - ring[k, :3, 3]) @ ring[k, :3, :3]
+        graph = tpg.add_keyframe(graph, torch.as_tensor(ring[k], device=dev), yes)
+        m = min(len(local), cfg.kf_surf_cap)
+        ms.kf_surf[k, :m] = torch.as_tensor(local[:m], device=dev)
+        ms.kf_surf_valid[k, :m] = True
+        ms.kf_times[k] = k * 10.0
+    graph.poses[11] = torch.as_tensor(Tz, device=dev) @ graph.poses[11]
+    return cfg, ms._replace(graph=graph)
+
+
+def _copy(tree):
+    return tpipe._unflatten(tree, [t.clone() for _, t in tpipe._flatten(tree)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("yaw_deg", [0.0, 75.0])
+def test_loop_attempt_replay_matches_eager(cuda, yaw_deg):
+    cfg, scene = _loop_scene(cuda, yaw_deg)
+    kernels.LAUNCHES.clear()
+    want, closed, fitness = tlm.loop_closure_step(_copy(scene), cfg)
+    eager = dict(kernels.LAUNCHES)
+    assert bool(closed)                 # both close: the yawed one by the rescue
+    pipe = tpipe.SlamPipeline(cfg, device=cuda)
+    pipe.state = pipe.state._replace(mapping=scene)
+    reads = []
+    pipe._read = lambda flag: reads.append(flag) or bool(flag)
+    kernels.LAUNCHES.clear()
+    pipe._loop_attempt()                           # the gate, a capture, a replay
+    g = pipe.loop_graph
+    assert len(reads) == 1
+    rescue = min(cfg.icp_iters, cfg.loop_rescue_icp_iters)
+    assert dict(kernels.LAUNCHES) == eager == g.launches == \
+        {"nn1": cfg.icp_iters + 1 + rescue + 1, "knn": 2}
+    # the warm-up runs each loop's iteration once; a replay launches the five
+    # graphs around the loops (two ICPs, two solves) and each loop's
+    # iteration graph its count
+    assert g.warmup_launches == {"nn1": 4, "knn": 2}
+    assert g.graph_launches == 5 + cfg.icp_iters + rescue + 2 * cfg.pose_graph_gn_iters
+    for (path, a), (_, b) in zip(tpipe._flatten(pipe.state.mapping), tpipe._flatten(want)):
+        assert torch.equal(a, b), path
+    assert torch.equal(g.closed, closed) and torch.equal(g.fitness, fitness)
+    # the same latest keyframe again: gated off, nothing launches
+    pipe._loop_attempt()
+    assert len(reads) == 2 and not bool(reads[1])
+    assert dict(kernels.LAUNCHES) == g.launches and pipe.loop_graph is g
+    pipe.state = pipe.state                        # adopting a state drops the graphs
+    assert pipe.loop_graph is None and pipe.graphs is None
+
+
+@pytest.mark.gpu
+def test_loop_attempt_makes_no_sync(cuda):
+    cfg, scene = _loop_scene(cuda, 75.0)
+    _, closest, latest = tlm.loop_gate(scene, cfg)
+    tlm.loop_attempt(_copy(scene), closest, latest, cfg)     # lazy set-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, closest, latest = tlm.loop_gate(scene, cfg)
+        tlm.loop_attempt(scene, closest, latest, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.gpu
+def test_host_read_in_the_attempt_raises(cuda, monkeypatch):
+    cfg, scene = _loop_scene(cuda)
+    real = tlm.loop_attempt
+
+    def reads(ms, *a, **kw):
+        ms.loop_attempts.item()
+        return real(ms, *a, **kw)
+
+    monkeypatch.setattr(tlm, "loop_attempt", reads)
+    pipe = tpipe.SlamPipeline(cfg, device=cuda)
+    pipe.state = pipe.state._replace(mapping=scene)
+    with pytest.raises(RuntimeError):
+        pipe._loop_attempt()
+    assert pipe.loop_graph is None
     torch.cuda.synchronize()

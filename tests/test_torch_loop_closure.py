@@ -9,8 +9,10 @@ same with ``loop_coarse_align=False`` is rejected.  In each, ``closed``,
 ``loop_count``, ``loop_i``/``loop_j`` and the attempt counters are equal;
 fitness within 1e-5 relative or 1e-9 m^2 (a converged fitness of ~1e-5 m^2
 moves by ~1e-10 with the transform's f32 rounding), poses within 1e-4 m /
-1e-5 rad.  The bird's-eye-view alignment of the yawed case finds the same
-(yaw, shift) peak, not merely a close one.  The host
+1e-5 rad.  Each attempt reads one flag on the host, its gate: ICP's
+early stop, the rescue and the solve are selects on the device.  The
+bird's-eye-view alignment of the yawed case finds the same (yaw, shift)
+peak, not merely a close one.  The host
 loop's hoisted attempt (``SlamPipeline._maybe_loop``) fires on the
 cadence boundary and equals the reference's attempt; ``_maybe_compact``
 fires ``16`` keyframes before capacity.
@@ -20,6 +22,7 @@ functions the port's kernels compute), and each reference program is
 compiled once per configuration.
 """
 
+import inspect
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -44,7 +47,7 @@ from test_sharded_mapping import _loop_ready_state
 torch.set_num_threads(1)
 
 BASE = dict(max_keyframes=64, loop_time_gap=30.0, history_search_num=3,
-            history_fitness_score=0.1, icp_iters=40)
+            history_fitness_score=0.1, icp_iters=15)
 
 
 def _yawed(ms, deg):
@@ -89,6 +92,23 @@ def scenes():
     return out
 
 
+@pytest.fixture(scope="module")
+def port_attempts(scenes):
+    """The port's ``loop_closure_step`` on each scene, once: (state, closed,
+    fitness, the flags it read on the host)."""
+    out = {}
+    for name, (cfg, ms_in, _) in scenes.items():
+        reads = []
+
+        def read(flag, reads=reads):
+            reads.append(flag)
+            return bool(flag)
+
+        ms_t = tree_from_reference(tlm.MappingState, ms_in, "cpu")
+        out[name] = tlm.loop_closure_step(ms_t, cfg, read=read) + (reads,)
+    return out
+
+
 def assert_loop_state_equal(ms_t, ms_j, t_tol=1e-4, r_tol=1e-5):
     g_t, g_j = ms_t.graph, ms_j.graph
     for name in ("count", "loop_count", "loop_i", "loop_j", "loop_overflow"):
@@ -111,10 +131,9 @@ def assert_loop_state_equal(ms_t, ms_j, t_tol=1e-4, r_tol=1e-5):
 
 
 @pytest.mark.parametrize("case", ["identity", "rescue", "no_rescue"])
-def test_loop_closure_step_matches_reference(scenes, case, monkeypatch):
-    cfg, ms_in, (ms_j, closed_j, fit_j) = scenes[case]
-    ms_t = tree_from_reference(tlm.MappingState, ms_in, "cpu")
-    ms_t, closed_t, fit_t = tlm.loop_closure_step(ms_t, cfg)
+def test_loop_closure_step_matches_reference(scenes, port_attempts, case, monkeypatch):
+    cfg, _, (ms_j, closed_j, fit_j) = scenes[case]
+    ms_t, closed_t, fit_t, _ = port_attempts[case]
     assert bool(closed_t) == bool(closed_j) == (case != "no_rescue")
     np.testing.assert_allclose(float(fit_t), float(fit_j), rtol=1e-5, atol=1e-9)
     assert_loop_state_equal(ms_t, ms_j)
@@ -131,12 +150,25 @@ def test_loop_closure_step_matches_reference(scenes, case, monkeypatch):
     assert not searches
 
 
+@pytest.mark.parametrize("case", ["identity", "rescue", "no_rescue"])
+def test_loop_closure_step_reads_only_its_gate(port_attempts, case):
+    """One host read per attempt, the gate (a 0-dim device bool that
+    passed); ICP takes no ``read``: its early stop, the rescue and the
+    solve are selects on the device."""
+    _, _, _, reads = port_attempts[case]
+    assert len(reads) == 1
+    assert reads[0].dtype == torch.bool and reads[0].dim() == 0 and bool(reads[0])
+    assert "read" not in inspect.signature(ticp.icp_point_to_point).parameters
+
+
 def test_hoisted_loop_fires_on_the_cadence(scenes):
     """``SlamPipeline._maybe_loop`` with ``loop_in_step=False``: nothing
     between cadence boundaries, one attempt on crossing one, equal to the
-    reference's ``loop_closure_step`` from the same state."""
+    reference's ``loop_closure_step`` from the same state.  The identity
+    scene's ICP stops after its first iteration, so a budget of 2 gives the
+    attempt of the reference's 15 (the masked loop runs its whole budget)."""
     cfg, ms_in, (ms_j, _, _) = scenes["identity"]
-    cfg = cfg.replace(loop_in_step=False)
+    cfg = cfg.replace(loop_in_step=False, icp_iters=2)
     pipe = tpipe.SlamPipeline(cfg, device="cpu")
     ms_t = tree_from_reference(tlm.MappingState, ms_in, "cpu")
     pipe.state = pipe.state._replace(mapping=ms_t)

@@ -46,7 +46,8 @@ j_se3 = {name: jax.jit(getattr(jse3, name))
 j_rot = jax.jit(jeig.rotation_from_covariance)
 j_scan = jax.jit(jcs.affine_scan_carry, static_argnames="reverse")
 j_chain = jax.jit(jcs.chain_solve)
-j_icp = jax.jit(jicp.icp_point_to_point, static_argnames=("iters", "max_corr_dist"))
+# the budget is traced: every ICP case with one start shares one program
+j_icp = jax.jit(jicp.icp_point_to_point, static_argnames="max_corr_dist")
 
 
 def T(a):
@@ -245,6 +246,10 @@ def test_optimize_matches_reference_and_dense_oracle():
     assert abs(e32 - float(energy(g_j))) <= 1e-5 * e_j
     assert abs(e32 - e_j) <= 1e-5 * e_j
     assert float(tpg.graph_energy(out_t, sigma)) < 1e-3 * e32
+    # the GN iterations through a loop that updates its carry in place (the
+    # loop graph's way) give the same poses
+    assert torch.equal(tpg.optimize(g_t, sigma, iters=3, loop=_in_place_loop).poses,
+                       out_t.poses)
 
 
 def test_add_loop_factor_counts_overflow():
@@ -259,6 +264,16 @@ def test_add_loop_factor_counts_overflow():
     assert int(g_t.loop_count) == 2 and int(g_t.loop_overflow) == 1
     for name in jpg.PoseGraph._fields:
         np.testing.assert_array_equal(N(getattr(g_t, name)), N(getattr(g_j, name)), err_msg=name)
+
+
+def _in_place_loop(body, carry, n):
+    """``device.fixed_loop`` the loop graph's way: the carry copied into
+    buffers of its own, each iteration written back into them."""
+    carry = tuple(c.clone() for c in carry)
+    for _ in range(n):
+        for c, new in zip(carry, body(carry)):
+            c.copy_(new)
+    return carry
 
 
 def _pallas_nn1(q, qm, r, rm, chunk=None):
@@ -278,11 +293,21 @@ def icp_clouds():
     return src, src_ok, tgt, tgt_ok, Tm
 
 
-@pytest.mark.parametrize("start", ["identity", "T0", "far"])
+@pytest.mark.parametrize("start", ["identity", "T0", "far", "budget", "frozen"])
 def test_icp_matches_reference(icp_clouds, start, monkeypatch):
+    """From identity, from near the truth, with no correspondence in range,
+    with a budget that runs out before the epsilon stop (``budget``), and
+    from identity with every search counted (``frozen``): the masked loop
+    runs all ``iters`` iterations and leaves the result of the reference's
+    ``while_loop``, bit for bit the result of a budget that ends at the
+    stop, and of a loop that updates its carry in place."""
     monkeypatch.setattr(jicp, "_nn1", _pallas_nn1)
     src, src_ok, tgt, tgt_ok, Tm = icp_clouds
-    kw = dict(iters=30, max_corr_dist=5.0)
+    kw = dict(iters=2 if start == "budget" else 30, max_corr_dist=5.0)
+    searches = []
+    if start == "frozen":
+        real = ticp._nn1
+        monkeypatch.setattr(ticp, "_nn1", lambda *a: searches.append(1) or real(*a))
     T0 = None
     if start == "T0":
         T0 = (Tm @ np.asarray(jse3.se3_exp(jnp.asarray([0.05, 0, 0, 0, 0, 0.02], jnp.float32)))
@@ -297,14 +322,35 @@ def test_icp_matches_reference(icp_clouds, start, monkeypatch):
     assert bool(res_t.converged) == bool(res_j.converged)
     np.testing.assert_allclose(N(res_t.transform), N(res_j.transform), rtol=0, atol=1e-5)
     # a converged d2 of ~1e-5 m^2 moves by ~1e-9 with the transform's f32
-    # rounding (~1e-7 m)
-    np.testing.assert_allclose(float(res_t.fitness), float(res_j.fitness), rtol=1e-5, atol=1e-9)
+    # rounding (~1e-7 m); the spent budget's d2 of ~5e-4 m^2 (2 cm) moves by
+    # ~2 sqrt(d2) 1e-7 m, 1e-8 m^2
+    np.testing.assert_allclose(float(res_t.fitness), float(res_j.fitness), rtol=1e-5,
+                               atol=2e-8 if start == "budget" else 1e-9)
     if start == "far":
         assert not bool(res_t.converged)
         np.testing.assert_array_equal(N(res_t.transform), np.eye(4))
+    elif start == "budget":
+        # PCL's default counts a spent budget as converged
+        assert int(res_t.iters) == 2 and bool(res_t.converged)
+        assert np.abs(N(res_t.transform) - Tm).max() > 5e-3
     else:
         assert bool(res_t.converged) and int(res_t.iters) < 30
         np.testing.assert_allclose(N(res_t.transform), Tm, rtol=0, atol=5e-3)
+    if start == "frozen":
+        # every iteration searched, and the fitness pass once more
+        assert len(searches) == 30 + 1
+        stop = int(res_t.iters)
+        res_s = ticp.icp_point_to_point(T(src), T(src_ok), T(tgt), T(tgt_ok), iters=stop,
+                                        max_corr_dist=5.0)
+        for got, want in zip(res_t, res_s):
+            assert torch.equal(got, want), (got, want)
+
+        # a loop that updates its carry in place, as the loop graph's
+        # replayed iteration does, leaves the same result
+        res_p = ticp.icp_point_to_point(T(src), T(src_ok), T(tgt), T(tgt_ok),
+                                        loop=_in_place_loop, **kw)
+        for got, want in zip(res_p, res_t):
+            assert torch.equal(got, want), (got, want)
 
 
 def test_compact_keyframes_matches_reference():
