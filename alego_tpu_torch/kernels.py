@@ -21,12 +21,12 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("ccl", "nn", "nn1")
+SOURCES = ("ccl", "gn", "nn", "nn1")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _libs: dict = {}
 
-# Launches per kernel ("ccl", "nn1", "knn"): each wrapper adds one where it
+# Launches per kernel ("ccl", "nn1", "knn", "gn"): each wrapper adds one where it
 # launches its kernel and nowhere else, so a run can show that its path went
 # through the kernels.  ``LAUNCHES.clear()`` resets every count.  A frame
 # replayed from a CUDA graph runs no wrapper: ``models.step_graph`` takes

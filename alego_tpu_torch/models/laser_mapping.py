@@ -40,8 +40,8 @@ from ..ops import se3
 from ..ops.knn import knn_best as knn
 from ..ops.voxel import voxel_downsample, voxel_downsample_exact, compact_masked
 from ..ops.eig3 import pca_line_fit, plane_fit
-from ..ops.residuals import point_to_line, point_to_plane_fitted
-from ..ops.gauss_newton import solve_gn, dims, FULL_DIMS
+from ..ops.residuals import LINE, PLANE_FITTED, correspondence_rows, join_correspondences
+from ..ops.gauss_newton import solve_correspondences, dims, FULL_DIMS
 from ..ops.icp import icp_point_to_point, ICPResult
 from ..ops.bev_align import bev_align, _ground_z
 from . import pose_graph as pg
@@ -214,15 +214,13 @@ def _scan_to_map(params0, c_ds, c_ok, st_ds, st_ok,
                                          cfg.plane_fit_tol)
         w_plane = (near_s & plane_ok).to(params.dtype)
 
-        def res_fn(p, pj=pj, pl=pl, unit_n=unit_n, d0=d0,
-                   w=torch.cat([w_line, w_plane])):
-            r_c, J_c = point_to_line(p, c_ds, pj, pl)
-            r_s, J_s = point_to_plane_fitted(p, st_ds, unit_n, d0)
-            return torch.cat([r_c, r_s]), torch.cat([J_c, J_s]), w
-
-        params = solve_gn(res_fn, params, cfg.map_gn_iters, full,
-                          cfg.huber_delta, param_tol=cfg.map_gn_tol,
-                          eig_floor=cfg.map_eig_floor)
+        # the corner rows then the surf rows: one gn kernel launch on the GPU
+        corr = join_correspondences(
+            correspondence_rows(LINE, c_ds, w_line, pj=pj, pl=pl),
+            correspondence_rows(PLANE_FITTED, st_ds, w_plane, pj=unit_n, scalar=d0))
+        params = solve_correspondences(corr, params, cfg.map_gn_iters, full,
+                                       cfg.huber_delta, param_tol=cfg.map_gn_tol,
+                                       eig_floor=cfg.map_eig_floor)
     return torch.where(enough, params, params0)
 
 

@@ -19,8 +19,9 @@ from ..config import PipelineConfig
 from ..ops import se3
 from ..ops.features import FeatureClouds
 from ..ops.knn import nn1_best as nn1, masked_argmin_dist
-from ..ops.residuals import point_to_line, point_to_plane_3pt
-from ..ops.gauss_newton import solve_gn, dims, SURF_DIMS, STEP_B_DIMS, CORNER_DIMS
+from ..ops.residuals import LINE, PLANE_3PT, correspondence_rows, join_correspondences
+from ..ops.gauss_newton import (solve_correspondences, dims, SURF_DIMS, STEP_B_DIMS,
+                                CORNER_DIMS)
 
 
 class OdometryState(NamedTuple):
@@ -99,44 +100,35 @@ def _associate_corner(params, fc: FeatureClouds, st: OdometryState,
 
 
 def odometry_step(st: OdometryState, fc: FeatureClouds, cfg: PipelineConfig):
-    """One odometry frame. Returns (new_state, pose 4x4 world)."""
+    """One odometry frame. Returns (new_state, pose 4x4 world).  Each of the
+    ``2 * odom_outer_iters`` solves is one :func:`solve_correspondences`
+    (one ``gn`` kernel launch on the GPU)."""
     surf_dims = dims(SURF_DIMS, st.params)
     step_b_dims = dims(STEP_B_DIMS, st.params)
-    corner_cols = dims(CORNER_DIMS, st.params).to(st.params.dtype)
-    surf_cols = surf_dims.to(st.params.dtype)
+    # step B's column masks by row kind: corner rows x, y, yaw; surf rows z
+    # (utility.h:162-167, 224-232); no kind-2 rows
+    kind_cols = torch.stack([dims(CORNER_DIMS, st.params), surf_dims,
+                             surf_dims]).to(st.params.dtype)
+    solve = dict(min_count=cfg.min_correspondences, eig_floor=cfg.odom_eig_floor,
+                 prior_weight=cfg.odom_prior_weight)
 
     def two_step(params):
         # step A: surf association + z-only solve (LO.cpp:408-492)
         s_cp, s_pj, s_pl, s_pm, s_w = _associate_surf(params, fc, st, cfg)
+        surf = correspondence_rows(PLANE_3PT, s_cp, s_w, pj=s_pj, pl=s_pl, pm=s_pm)
+        params_a = solve_correspondences(join_correspondences(surf), params,
+                                         cfg.odom_surf_iters, surf_dims,
+                                         cfg.huber_delta, **solve)
 
-        def surf_res(p):
-            r, J = point_to_plane_3pt(p, s_cp, s_pj, s_pl, s_pm)
-            return r, J, s_w
-
-        params_a = solve_gn(surf_res, params, cfg.odom_surf_iters, surf_dims,
-                            cfg.huber_delta, min_count=cfg.min_correspondences,
-                            eig_floor=cfg.odom_eig_floor,
-                            prior_weight=cfg.odom_prior_weight)
-
-        # step B: corner association at the updated pose + joint solve
+        # step B: corner association at the updated pose + joint solve, the
+        # surf rows then the corner rows
         c_cp, c_pj, c_pl, c_w = _associate_corner(params_a, fc, st, cfg)
         enough_corners = torch.sum(c_w > 0) >= cfg.min_correspondences
-
-        def joint_res(p):
-            r_s, J_s = point_to_plane_3pt(p, s_cp, s_pj, s_pl, s_pm)
-            r_c, J_c = point_to_line(p, c_cp, c_pj, c_pl)
-            J_s = J_s * surf_cols[None, :]
-            J_c = J_c * corner_cols[None, :]
-            r = torch.cat([r_s, r_c])
-            J = torch.cat([J_s, J_c])
-            w = torch.cat([s_w, c_w * enough_corners.to(c_w.dtype)])
-            return r, J, w
-
-        params_b = solve_gn(joint_res, params_a, cfg.odom_corner_iters,
-                            step_b_dims, cfg.huber_delta,
-                            min_count=cfg.min_correspondences,
-                            eig_floor=cfg.odom_eig_floor,
-                            prior_weight=cfg.odom_prior_weight)
+        corner = correspondence_rows(LINE, c_cp, c_w * enough_corners.to(c_w.dtype),
+                                     pj=c_pj, pl=c_pl)
+        params_b = solve_correspondences(join_correspondences(surf, corner), params_a,
+                                         cfg.odom_corner_iters, step_b_dims,
+                                         cfg.huber_delta, kind_cols=kind_cols, **solve)
         # too few corners: the reference skips the second solve (LO.cpp:556-574)
         return torch.where(enough_corners, params_b, params_a)
 

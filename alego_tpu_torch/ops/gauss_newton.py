@@ -10,15 +10,23 @@ zeroes non-finite updates.  The degeneracy projector's 6x6 symmetric
 eigendecomposition is a cyclic Jacobi with a fixed number of sweeps in
 torch ops (``torch.linalg.eigh`` checks its status on the host), so the
 whole solve can be captured in a CUDA graph.
+
+:func:`solve_correspondences` is the frame step's solve over a
+:class:`~.residuals.Correspondences` batch: on a CUDA tensor one launch of
+the ``csrc/gn.cu`` kernel runs the whole solve; on a CPU tensor its plain
+version, ``solve_gn`` over ``eval_correspondences``, runs.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable
 
 import torch
 
+from .. import kernels
 from ..device import vector
+from .residuals import Correspondences, eval_correspondences
 
 
 def huber_weight(r: torch.Tensor, delta: float) -> torch.Tensor:
@@ -32,6 +40,12 @@ def _drop_nonfinite(r, J, w):
             w * row_ok.to(w.dtype))
 
 
+def normal_equations(J: torch.Tensor, Jw: torch.Tensor, r: torch.Tensor):
+    """H = J^T Jw [6, 6] and g = Jw^T r [6] in J's dtype (the ``gn`` kernel
+    takes these sums in f64)."""
+    return J.T @ Jw, Jw.T @ r
+
+
 def gn_step(params, r, J, weight, dim_mask, huber_delta: float,
             damping: float = 1e-6, min_count: int = 0) -> torch.Tensor:
     """One masked GN update; weight is per-residual validity (0 = padding).
@@ -40,8 +54,7 @@ def gn_step(params, r, J, weight, dim_mask, huber_delta: float,
     r, J, weight = _drop_nonfinite(r, J, weight)
     w = weight * huber_weight(r, huber_delta)
     Jw = J * w[:, None]
-    H = J.T @ Jw
-    g = Jw.T @ r
+    H, g = normal_equations(J, Jw, r)
 
     m = dim_mask.to(params.dtype)
     eye = torch.eye(6, dtype=params.dtype, device=params.device)
@@ -167,7 +180,7 @@ def solve_gn(residual_fn: Callable[[torch.Tensor], tuple],
     if eig_floor > 0.0:
         r, J, w = rJw
         hw = w * huber_weight(r, huber_delta)
-        H0 = J.T @ (J * hw[:, None])
+        H0, _ = normal_equations(J, J * hw[:, None], r)
         H0 = H0 * (m[:, None] * m[None, :]) + torch.diag(1.0 - m)
         P = degeneracy_projector(H0, eig_floor)
     mc = min_count + (6 if prior_weight > 0.0 else 0)
@@ -199,3 +212,103 @@ def dims(mask: tuple, like: torch.Tensor) -> torch.Tensor:
     """A dim mask as a bool tensor on ``like``'s device, written by fills
     (``torch.tensor(..., device=cuda)`` would copy from the host and wait)."""
     return vector(mask, torch.bool, like.device)
+
+
+# ---------------------------------------------------------------------------
+# the solve over a Correspondences batch: plain version and CUDA kernel
+# ---------------------------------------------------------------------------
+
+def solve_correspondences_plain(corr: Correspondences, params0, iters: int,
+                                dim_mask, huber_delta: float, *, kind_cols=None,
+                                damping: float = 1e-6, min_count: int = 0,
+                                param_tol: float = 1e-4, eig_floor: float = 0.0,
+                                prior_weight: float = 0.0, max_step: float = 1.0):
+    """The plain version of the ``gn`` kernel: :func:`solve_gn` over the
+    batch's rows evaluated by kind, each row's Jacobian multiplied by its
+    kind's row of ``kind_cols`` [3, 6] (None: no column mask)."""
+    def residuals(p):
+        r, J = eval_correspondences(p, corr)
+        if kind_cols is not None:
+            k = corr.kind[:, None]
+            J = J * torch.where(k == 0, kind_cols[0],
+                                torch.where(k == 1, kind_cols[1], kind_cols[2]))
+        return r, J, corr.weight
+
+    return solve_gn(residuals, params0, iters, dim_mask, huber_delta, damping,
+                    min_count, param_tol, eig_floor, prior_weight, max_step)
+
+
+def _gn_launcher():
+    fn = kernels.library("gn").alego_gn_solve
+    if fn.argtypes is None:   # declare once: pointers must not be cut to int
+        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        fn.argtypes = [p] * 7 + [i, p, p, p, p, p, i, d, d, i, d, d, d, d, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_batch(corr: Correspondences, params0, dim_mask, kind_cols):
+    dev = params0.device
+    n = corr.cp.shape[0]
+    want = [("cp", torch.float32, (n, 3)), ("pj", torch.float32, (n, 3)),
+            ("pl", torch.float32, (n, 3)), ("pm", torch.float32, (n, 3)),
+            ("scalar", torch.float32, (n,)), ("kind", torch.int32, (n,)),
+            ("weight", torch.float32, (n,))]
+    named = [(name, getattr(corr, name), dt, sh) for name, dt, sh in want]
+    named += [("params0", params0, torch.float32, (6,)),
+              ("dim_mask", dim_mask, torch.bool, (6,))]
+    if kind_cols is not None:
+        named.append(("kind_cols", kind_cols, torch.float32, (3, 6)))
+    for name, t, dt, sh in named:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name} must lie on params0's CUDA device, not {t.device}")
+        if t.dtype != dt:
+            raise ValueError(f"{name} must be {dt}, got {t.dtype}")
+        if tuple(t.shape) != sh:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, not {sh}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def solve_correspondences_cuda(corr: Correspondences, params0, iters: int,
+                               dim_mask, huber_delta: float, *, kind_cols=None,
+                               damping: float = 1e-6, min_count: int = 0,
+                               param_tol: float = 1e-4, eig_floor: float = 0.0,
+                               prior_weight: float = 0.0, max_step: float = 1.0,
+                               iters_out=None):
+    """One launch of the ``gn`` kernel: the whole solve; returns the params
+    [6].  ``iters_out`` ([1] int32 on the device, or None) receives the
+    iterations run.  No PyTorch op runs on the device besides the output's
+    allocation."""
+    _check_batch(corr, params0, dim_mask, kind_cols)
+    if iters_out is not None and (iters_out.dtype != torch.int32
+                                  or iters_out.device != params0.device):
+        raise ValueError("iters_out must be an int32 tensor on params0's device")
+    out = torch.empty(6, dtype=torch.float32, device=params0.device)
+    stream = torch.cuda.current_stream(params0.device).cuda_stream
+    status = _gn_launcher()(
+        corr.cp.data_ptr(), corr.pj.data_ptr(), corr.pl.data_ptr(), corr.pm.data_ptr(),
+        corr.scalar.data_ptr(), corr.kind.data_ptr(), corr.weight.data_ptr(),
+        corr.cp.shape[0], None if kind_cols is None else kind_cols.data_ptr(),
+        dim_mask.data_ptr(), params0.data_ptr(), out.data_ptr(),
+        None if iters_out is None else iters_out.data_ptr(), int(iters),
+        float(huber_delta), float(damping), int(min_count), float(param_tol),
+        float(eig_floor), float(prior_weight), float(max_step), stream)
+    kernels.check(status, "gn kernel")
+    kernels.LAUNCHES["gn"] += 1
+    return out
+
+
+def solve_correspondences(corr: Correspondences, params0, iters: int, dim_mask,
+                          huber_delta: float, *, kind_cols=None, damping: float = 1e-6,
+                          min_count: int = 0, param_tol: float = 1e-4,
+                          eig_floor: float = 0.0, prior_weight: float = 0.0,
+                          max_step: float = 1.0):
+    """:func:`solve_gn` over the rows of ``corr`` (see
+    :func:`solve_correspondences_plain`): the ``gn`` kernel for tensors on
+    the GPU, its plain version for tensors on the CPU."""
+    solve = (solve_correspondences_plain if params0.device.type == "cpu"
+             else solve_correspondences_cuda)
+    return solve(corr, params0, iters, dim_mask, huber_delta, kind_cols=kind_cols,
+                 damping=damping, min_count=min_count, param_tol=param_tol,
+                 eig_floor=eig_floor, prior_weight=prior_weight, max_step=max_step)

@@ -1,5 +1,4 @@
-"""SO(3)/SE(3) utilities (batched), the part of ``alego_tpu.ops.se3`` that
-the frame step, loop closure and the CLI's TUM output call.
+"""SO(3)/SE(3) utilities (batched), the port of ``alego_tpu.ops.se3``.
 
 Conventions match the reference: rotations compose as
 ``Rz(yaw) @ Ry(pitch) @ Rx(roll)``, pose params are the Ceres block layout
@@ -96,6 +95,10 @@ def transform_points(params: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply pose params [..., 6] to points [..., N, 3]: R p + t."""
     R = rpy_to_rot(params[..., 3:6])
     return pts @ R.transpose(-1, -2) + params[..., None, :3]
+
+
+def compose_mats(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
 
 
 def inv_mat(T: torch.Tensor) -> torch.Tensor:

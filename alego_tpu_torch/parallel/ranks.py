@@ -125,9 +125,9 @@ def _gathered_stats(comm: Comm, pipe: DistributedSlamPipeline, est: torch.Tensor
     g = pipe.state.mapping.graph
     state = [g.count, g.loop_count, _checksum(est), _checksum(g.poses[:int(g.count)])]
     row = [kernels.LAUNCHES["ccl"], kernels.LAUNCHES["nn1"], kernels.LAUNCHES["knn"],
-           comm.seconds, comm.calls, comm.max_gather_bytes, peak] + [float(x) for x in state]
+           kernels.LAUNCHES["gn"], comm.seconds, comm.calls, comm.max_gather_bytes, peak] + [float(x) for x in state]
     rows = comm.all_gather(torch.tensor(row, dtype=torch.float64, device=comm.device))
-    keys = ("ccl", "nn1", "knn", "collective_seconds", "collective_calls",
+    keys = ("ccl", "nn1", "knn", "gn", "collective_seconds", "collective_calls",
             "max_gather_bytes", "peak_mib", "keyframes", "loops", "poses_checksum",
             "kf_poses_checksum")
     return [dict(zip(keys, r)) for r in rows.cpu().tolist()]

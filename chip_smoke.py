@@ -13,22 +13,23 @@ phase prints its seconds):
 
 1. environment: torch/CUDA versions, ``nvcc --version``, the card's name and
    power limit;
-2. build: every kernel of ``alego_tpu_torch/csrc`` with ``nvcc`` (one
-   process per source, all started together);
+2. build: every kernel of ``alego_tpu_torch/csrc`` (CCL, 1-NN, k-NN and
+   the Gauss-Newton solve ``gn``) with ``nvcc`` (one process per source,
+   all started together);
 3. the main path: ``SlamPipeline(PipelineConfig(loop_in_step=False))``
    over the first 32 frames of the 192-frame closed bench circuit, its
    frame step replayed from CUDA graphs (as in every single-card phase
    below), with the kernel launch counts asserted (counts set to 0 just
-   before the timed pass), finite poses, and ATE against ground truth held
-   at its known value (the kernels are exact; no loop can close in 32
-   frames);
+   before the timed pass; ``step_launches``: 32 / 192 / 64 / 224 for
+   ``ccl`` / ``nn1`` / ``knn`` / ``gn``), finite poses, and ATE against
+   ground truth held at its known value (no loop can close in 32 frames);
    ``graph_step``: the same 32 frames through the graphed pipeline and
    through an eager loop of ``slam_step`` on the card, held against each
    other (launches and keyframes equal, every pose within 1e-5 m), each
    with its ms/frame, host syncs per frame, device busy ms/frame and idle
    share (``torch.profiler``), capture seconds and peak MiB; and the
-   device time, in a graph, of the pieces the capture added: the local-map
-   build on every mapping frame and the Jacobi degeneracy projector;
+   device time, in a graph, of the local-map build the capture added on
+   every mapping frame (the degeneracy projector runs inside ``gn``);
 4. the loop path: the same pipeline over the whole circuit, where the hoisted
    loop-closure attempts (ICP on the 1-NN kernel, the acceptance gate on the
    k = 1 k-NN kernel, the pose-graph solve), each one host read of its gate
@@ -48,7 +49,10 @@ phase prints its seconds):
    random maze), and at the loop shapes on the inputs of the loop path's
    last attempt: agreement, kernel time, bare launch time, plain time, the
    time of one PyTorch library computation of the same function where one
-   exists, and the bound from the shapes;
+   exists, and the bound from the shapes; the ``gn`` kernel on the last
+   solve of each of its three compositions (odometry step A and step B,
+   mapping) in an eager run of the 32 frames, against the plain solve
+   (within ``GN_TOL``), with the plain solve's time also in a CUDA graph;
 6. a 4-frame tiny-config run on the card held against the same run on the
    CPU (the CPU path is what the tests hold against the JAX reference), and
    tiny-config ``loop_closure_step`` on the card against the CPU on the loop
@@ -123,8 +127,10 @@ N_FRAMES = 32          # frames of the main-path run
 # move a pose by ~1e-7 m from run to run
 GRAPH_POSE_TOL_M = 1e-5
 PROFILE_FRAMES = 8     # frames under torch.profiler in graph_step
-# the main path's unaligned ATE over those frames; the kernels are exact, so
-# a kernel change must leave it where it is
+# the main path's unaligned ATE over those frames; the search kernels are
+# exact, so a change of theirs must leave it where it is.  The gn kernel's
+# sums (f64, its own order) put it at 0.120759 against the plain solve's
+# 0.120718 (tools/gn_attribution.py), inside the tolerance
 ATE_M, ATE_TOL_M = 0.1207, 1e-4
 N_CIRCUIT = 192        # the bench circuit the frames are cut from
 # the loop path over the whole circuit, held where the card puts it (runs
@@ -153,12 +159,16 @@ IMU_HZ, IMU_RPY_SIGMA, IMU_ACC_SIGMA, IMU_SEED = 40, float(np.radians(0.3)), 0.0
 # unaligned ATE (m) of the CLI's TUM trajectory with de-skew and of the same
 # skewed frames through run_scanned without it.  The degeneracy projector's
 # eigendecomposition (a fixed-sweep Jacobi in place of torch.linalg.eigh,
-# which cannot be captured) moved both ATEs from 0.67855 / 0.94204: with
-# the old projector this tree gives those to the last digit, and a 1e-7
-# perturbation of the projector moves them as far
-# (tools/projector_attribution.py); the loop factors did not move
+# which cannot be captured) moved both ATEs from 0.67855 / 0.94204 to
+# 0.67994 / 0.91965 (tools/projector_attribution.py: a 1e-7 perturbation
+# of the projector moves them as far).  The gn kernel's sums (f64, its own
+# order) moved them to 0.67085 / 0.87136; the plain solve still gives
+# 0.67994 / 0.91965 to the last digit, and the plain solve over its rows in
+# other orders moves them as far (tools/gn_attribution.py: 0.67037-0.68321
+# over 66 orders / 0.69915-0.95193 over 8, one closing (95, 1)); the loop
+# factors did not move
 DESKEW_PAIRS = [(95, 0)]
-DESKEW_ATE_M, NO_DESKEW_ATE_M, DESKEW_ATE_TOL_M = 0.67994, 0.91965, 1e-3
+DESKEW_ATE_M, NO_DESKEW_ATE_M, DESKEW_ATE_TOL_M = 0.67085, 0.87136, 1e-3
 # the single map on MESH_RANKS ranks sharing the card: the reference's bars
 # against the single-device run (tests/test_distributed_pipeline.py), and
 # the card's own answer (runs repeat it to the last digit): the loop
@@ -170,6 +180,16 @@ MESH_TRAJ_TOL_M = MESH_ATE_TOL_M = 5e-2
 MESH_LOOP_PAIRS = [(87, 0), (89, 0), (92, 0), (94, 0)]
 MESH_ATE_M, MESH_KF_ATE_M = 0.32270, 0.39085
 N_LANE = 32           # frames of each --mesh lane
+# the gn kernel against its plain solve on the card (params, m and rad):
+# the kernel sums H and g in f64 in its own order, the plain solve in f32
+# by cuBLAS, so they agree to f32 rounding of the sums, carried through
+# the iterations, not bit for bit
+GN_TOL = 1e-4
+# the gn kernel's arithmetic per row and iteration, counted from its
+# source (csrc/gn.cu: the transform and its rpy partials ~63, a line row's
+# residual and Jacobian ~72, the checks, Huber weight and weighted row ~17,
+# the 27 f64 products and sums of H and g ~54)
+GN_OPS_PER_ROW = 206
 # timing: the median over *_WINDOWS windows of *_REPS back-to-back calls
 KERNEL_WINDOWS, KERNEL_REPS = 21, 5
 PLAIN_WINDOWS, PLAIN_REPS = 3, 1
@@ -177,6 +197,16 @@ PLAIN_WINDOWS, PLAIN_REPS = 3, 1
 
 def log(*a):
     print(*a, flush=True)
+
+
+def step_launches(cfg, n, n_map):
+    """The frame step's kernel launches over ``n`` frames, ``n_map`` of
+    them mapping: per frame the CCL, and per odometry pass two 1-NN
+    searches and two solves (``gn``); per mapping frame and mapping pass
+    two k-NN searches and one solve."""
+    odo = max(cfg.odom_outer_iters, 1)
+    return {"ccl": n, "nn1": 2 * odo * n, "knn": 2 * cfg.map_outer_iters * n_map,
+            "gn": 2 * odo * n + cfg.map_outer_iters * n_map}
 
 
 def _run(cmd):
@@ -342,7 +372,107 @@ def phase_kernels(cfg, pts, mask, state):
     ]
     rows.append(_nn_row("knn", "knn", "alego_tpu/ops/pallas_nn.py:227", knn_cases,
                         cfg.map_knn))
+
+    # ---- gn: the last solve of each composition over the 32 frames ----
+    rows.append(_gn_row(_record_solves(cfg, pts, mask)))
     return rows
+
+
+def _record_solves(cfg, pts, mask):
+    """The inputs of the last solve of each composition, odometry step A
+    (no column mask), step B (its column masks) and the mapping solve, in
+    an eager run of ``slam_step`` over the frames on the card (a graphed
+    frame's solves run inside its replay)."""
+    import torch
+    from alego_tpu_torch.models import laser_mapping as lm, laser_odometry as lo
+    from alego_tpu_torch.ops import gauss_newton as gn
+
+    real, seen = gn.solve_correspondences, {}
+
+    def recorder(module):
+        def solve(corr, params0, iters, dim_mask, huber_delta, **kw):
+            kind = module if module == "mapping" else (
+                "step_a" if kw.get("kind_cols") is None else "step_b")
+            seen[kind] = (type(corr)(*(t.clone() for t in corr)), params0.clone(), iters,
+                          dim_mask.clone(), huber_delta,
+                          {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()})
+            return real(corr, params0, iters, dim_mask, huber_delta, **kw)
+        return solve
+
+    lo.solve_correspondences, lm.solve_correspondences = recorder("odometry"), recorder("mapping")
+    try:
+        eager_steps(cfg, torch.as_tensor(pts, device="cuda"), torch.as_tensor(mask, device="cuda"))
+    finally:
+        lo.solve_correspondences = lm.solve_correspondences = real
+    torch.cuda.synchronize()
+    return seen
+
+
+def _gn_row(cases):
+    """The gn kernel against its plain solve (``solve_gn`` over the batch)
+    on the recorded solves: agreement, kernel ms, bare launch ms, plain ms
+    eager and in a CUDA graph, and the bound: the batch's bytes read once,
+    or ``GN_OPS_PER_ROW`` operations per row and iteration run.  No one
+    PyTorch call computes a GN solve: library none.  Times are sums over
+    the three compositions (one launch of each)."""
+    import torch
+    from alego_tpu_torch.ops import gauss_newton as gn
+
+    tot = dict(ms=0.0, kernel_only_ms=0.0, plain_ms=0.0, plain_graph_ms=0.0,
+               bytes_ms=0.0, ops_ms=0.0)
+    max_err, shapes, detail = 0.0, [], {}
+    for label in ("step_a", "step_b", "mapping"):
+        corr, p0, iters, dims, delta, kw = cases[label]
+        args = (corr, p0, iters, dims, delta)
+        done = torch.zeros(1, dtype=torch.int32, device="cuda")
+        got = gn.solve_correspondences_cuda(*args, **kw, iters_out=done)
+        want = gn.solve_correspondences_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        assert bool(torch.isfinite(got).all()), f"gn {label}: non-finite params"
+        assert err <= GN_TOL, f"gn {label}: kernel and plain solve {err:.3e} apart"
+        max_err = max(max_err, err)
+        ms = _median_ms(lambda: gn.solve_correspondences_cuda(*args, **kw))
+        out, launch = torch.empty(6, device="cuda"), gn._gn_launcher()
+        stream = torch.cuda.current_stream().cuda_stream
+        cols = kw.get("kind_cols")
+        ptrs = [t.data_ptr() for t in corr]
+        kernel_only_ms = _median_ms(lambda: launch(
+            *ptrs, corr.cp.shape[0], None if cols is None else cols.data_ptr(),
+            dims.data_ptr(), p0.data_ptr(), out.data_ptr(), None, iters, delta,
+            kw.get("damping", 1e-6), kw.get("min_count", 0), kw.get("param_tol", 1e-4),
+            kw.get("eig_floor", 0.0), kw.get("prior_weight", 0.0), kw.get("max_step", 1.0),
+            stream))
+        plain = lambda: gn.solve_correspondences_plain(*args, **kw)   # noqa: E731
+        plain_ms = _median_ms(plain, PLAIN_WINDOWS, PLAIN_REPS)
+        plain_graph_ms = _graph_ms(plain, reps=2)
+        n, it = corr.cp.shape[0], int(done)
+        live = int((corr.weight > 0).sum())
+        nbytes = n * 60 + 6 * 4 * 2 + 6 + (0 if cols is None else 18 * 4)
+        bytes_ms, _ = _bound(nbytes, 0)
+        ops_ms, _ = _bound(0, it * (n + (6 if kw.get("prior_weight", 0.0) > 0 else 0))
+                           * GN_OPS_PER_ROW)
+        shapes.append(f"{label} {n} rows ({live} weighted), {it} of {iters} iterations")
+        detail[label] = dict(rows=n, weighted=live, iters=it, max_iters=iters, err=err, ms=ms,
+                             kernel_only_ms=kernel_only_ms, plain_ms=plain_ms,
+                             plain_graph_ms=plain_graph_ms, bound_ms=max(bytes_ms, ops_ms))
+        log(f"gn {label} {n} rows ({live} weighted), {it} of {iters} iterations: max "
+            f"|params err| {err:.3e}, kernel {ms:.4f} ms (bare launch {kernel_only_ms:.4f} "
+            f"ms), plain {plain_ms:.4f} ms (in a graph {plain_graph_ms:.4f} ms), bound "
+            f"{max(bytes_ms, ops_ms):.6f} ms")
+        for key, val in (("ms", ms), ("kernel_only_ms", kernel_only_ms), ("plain_ms", plain_ms),
+                         ("plain_graph_ms", plain_graph_ms), ("bytes_ms", bytes_ms),
+                         ("ops_ms", ops_ms)):
+            tot[key] += val
+    bound_ms, bound_by = ((tot["bytes_ms"], "bytes") if tot["bytes_ms"] >= tot["ops_ms"]
+                          else (tot["ops_ms"], "operations"))
+    return dict(name="gn", route="cuda", source="alego_tpu_torch/csrc/gn.cu",
+                replaces="alego_tpu/ops/gauss_newton.py:90 (solve_gn's lax.while_loop; "
+                         "no Pallas kernel)",
+                shapes=shapes, cases=detail, max_abs_err=max_err, ms=tot["ms"],
+                kernel_only_ms=tot["kernel_only_ms"], plain_ms=tot["plain_ms"],
+                plain_graph_ms=tot["plain_graph_ms"], bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 def _live(mask):
@@ -452,9 +582,7 @@ def phase_main_path(cfg, gt, pts, mask):
     est = torch.stack(pipe.poses).cpu().numpy()
 
     n = pts.shape[0]
-    n_map = -(-n // cfg.map_frame_decimation)
-    expected = {"ccl": n, "nn1": 2 * max(cfg.odom_outer_iters, 1) * n,
-                "knn": 2 * cfg.map_outer_iters * n_map}
+    expected = step_launches(cfg, n, -(-n // cfg.map_frame_decimation))
     log(f"launches {launches}, expected {expected}")
     assert launches == expected, f"launch counts {launches} != {expected}"
     assert np.isfinite(est).all(), "non-finite pose"
@@ -518,13 +646,11 @@ def phase_graph_step(cfg, pts, mask):
     frame 4: its frames read nothing, as phase 8 asserts);
     capture seconds; peak MiB (allocated, capture included, and reserved).
     Then the device ms, in a graph, of a local-map build (the capture builds
-    it on every mapping frame and selects it on the device) and of one
-    degeneracy projector (two per mapping frame)."""
+    it on every mapping frame and selects it on the device)."""
     import torch
     from alego_tpu_torch import kernels
     from alego_tpu_torch.models import laser_mapping as lm
     from alego_tpu_torch.models.pipeline import SlamPipeline
-    from alego_tpu_torch.ops.gauss_newton import degeneracy_projector
     from alego_tpu_torch.utils.profiling import device_window
 
     n, m = pts.shape[0], PROFILE_FRAMES
@@ -549,14 +675,7 @@ def phase_graph_step(cfg, pts, mask):
         captured_launches={("map" if k else "no_map"): v for k, v in pipe.graphs.launches.items()},
         peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
         reserved_mib=torch.cuda.max_memory_reserved() / 2 ** 20)
-    rng = np.random.default_rng(0)
-    A = rng.normal(size=(6, 6))
-    H = torch.as_tensor(A @ A.T * 100.0, dtype=torch.float32, device="cuda")
     out["local_map_build_ms"] = _graph_ms(lambda: lm._build_local_map(pipe.state.mapping, cfg))
-    out["projector_ms"] = _graph_ms(lambda: degeneracy_projector(H, cfg.map_eig_floor))
-    # two projectors per mapping frame, one mapping frame in map_frame_decimation
-    out["projector_ms_per_frame"] = (out["projector_ms"] * cfg.map_outer_iters
-                                     / cfg.map_frame_decimation)
     del pipe
     torch.cuda.empty_cache()
 
@@ -812,7 +931,9 @@ def _counted_loop_run(cfg, gt, pts, mask):
                    loop_graph_launches=pipe.loop_graph.launches,
                    loop_graph_graph_launches=pipe.loop_graph.graph_launches)
     log(f"loop path: {json.dumps(summary)}")
+    step = step_launches(cfg, n, n_map)
     assert launches["ccl"] == n, f"ccl launches {launches['ccl']} != {n}"
+    assert launches["gn"] == step["gn"], f"gn launches {launches['gn']} != {step['gn']}"
     _check_loop_results(res, "loop path")
     assert in_attempts == {k: v * LOOP_ATTEMPTS for k, v in per_attempt.items()}, \
         f"attempt launches {in_attempts}, not {LOOP_ATTEMPTS} x {per_attempt}"
@@ -999,9 +1120,7 @@ def phase_in_step(cfg, gt, pts, mask, checkpoint):
     launches = dict(kernels.LAUNCHES)
     ref = SlamPipeline(cfg, device="cuda").run(pts[:N_IN_STEP], mask[:N_IN_STEP])
     dt = float(np.abs(est[:, :3, 3] - ref[:, :3, 3]).max())
-    n_map = -(-N_IN_STEP // cfg.map_frame_decimation)
-    expected = {"ccl": N_IN_STEP, "nn1": 2 * max(cfg.odom_outer_iters, 1) * N_IN_STEP,
-                "knn": 2 * cfg.map_outer_iters * n_map}
+    expected = step_launches(cfg, N_IN_STEP, -(-N_IN_STEP // cfg.map_frame_decimation))
     log(f"loop_in_step=True, {N_IN_STEP} frames: attempts at frames {calls}, launches "
         f"{launches}, max |dt| against the hoisted run {dt:.3e} m")
     assert calls == list(range(0, N_IN_STEP, cfg.loop_every_n_frames)), calls
@@ -1022,8 +1141,9 @@ def phase_in_step(cfg, gt, pts, mask, checkpoint):
     per_attempt = attempt_launches(cfg)
     n_map = len(range(IN_STEP_FROM, pts.shape[0], cfg.map_frame_decimation))
     k = len(rec.attempts)
-    expected = {"ccl": n, "nn1": 2 * max(cfg.odom_outer_iters, 1) * n + k * per_attempt["nn1"],
-                "knn": 2 * cfg.map_outer_iters * n_map + k * per_attempt["knn"]}
+    expected = step_launches(cfg, n, n_map)
+    for name, v in per_attempt.items():
+        expected[name] += k * v
     res = dict(frames=n, from_frame=IN_STEP_FROM, attempts=k,
                attempt_frames=[a["frame"] for a in rec.attempts],
                loops=n_loops, loop_pairs=[(int(i), int(j)) for i, j in zip(
@@ -1100,9 +1220,7 @@ def phase_radius_path(cfg, gt, pts, mask):
                           for i in range(0, n, 16)])
     total_s = time.time() - t0
     launches = dict(kernels.LAUNCHES)
-    n_map = -(-n // cfg.map_frame_decimation)
-    expected = {"ccl": n, "nn1": 2 * max(cfg.odom_outer_iters, 1) * n,
-                "knn": 2 * cfg.map_outer_iters * n_map}
+    expected = step_launches(cfg, n, -(-n // cfg.map_frame_decimation))
     assert np.isfinite(est).all(), "non-finite pose"
     ate = ate_rmse(est[:, :3, 3], gt[:, :3, 3], align=False)
     m = 2
@@ -1302,6 +1420,7 @@ def phase_deskew_path(cfg, gt, pts, mask, imu):
     assert launches["ccl"] == n, f"ccl launches {launches['ccl']} != {n}"
     assert launches["nn1"] >= 2 * max(cfg.odom_outer_iters, 1) * n, launches
     assert launches["knn"] >= 2 * n_map, launches
+    assert launches["gn"] == step_launches(cfg, n, n_map)["gn"], launches
     assert res["imu_count"] == len(imu), "IMU samples lost"
     assert shift > 1e-3, "de-skew moved no point"
     assert res["overflow"] == 0 and res["loop_overflow"] == 0, "capacity reached"
@@ -1327,10 +1446,8 @@ def phase_mesh_nccl1(cfg, gt, pts, mask, tmp):
                         backend="nccl", timeout=600)
     n = pts.shape[0]
     r0 = res["ranks"][0]
-    launches = {k: int(r0[k]) for k in ("ccl", "nn1", "knn")}
-    n_map = -(-n // cfg.map_frame_decimation)
-    expected = {"ccl": n, "nn1": 2 * max(cfg.odom_outer_iters, 1) * n,
-                "knn": 2 * cfg.map_outer_iters * n_map}
+    launches = {k: int(r0[k]) for k in ("ccl", "nn1", "knn", "gn")}
+    expected = step_launches(cfg, n, -(-n // cfg.map_frame_decimation))
     est = res["poses"]
     assert np.isfinite(est).all(), "non-finite pose"
     ate = ate_rmse(est[:, :3, 3], gt[:, :3, 3], align=False)
@@ -1402,7 +1519,7 @@ def phase_mesh_single_map(cfg, gt, res, loop_summary, loop_est, backend="gloo"):
     gt_idx = np.clip(np.round(res["kf_times"] / cfg.scan_period).astype(int), 0, n - 1)
     kf_ate = ate_rmse(res["kf_poses"][:, :3, 3], gt[gt_idx, :3, 3], align=False)
     traj = float(np.linalg.norm(est[:, :3, 3] - loop_est[:, :3, 3], axis=1).max())
-    per_rank = [dict(knn=int(r["knn"]), nn1=int(r["nn1"]), ccl=int(r["ccl"]),
+    per_rank = [dict(knn=int(r["knn"]), nn1=int(r["nn1"]), ccl=int(r["ccl"]), gn=int(r["gn"]),
                      collective_s_per_frame=r["collective_seconds"] / n,
                      collective_calls=int(r["collective_calls"]),
                      max_gather_bytes=int(r["max_gather_bytes"]), peak_mib=r["peak_mib"],
@@ -1430,6 +1547,7 @@ def phase_mesh_single_map(cfg, gt, res, loop_summary, loop_est, backend="gloo"):
     n_map = -(-n // cfg.map_frame_decimation)
     for r in per_rank:   # every rank ran its shard of every mapping search
         assert r["ccl"] == n and r["knn"] >= 2 * cfg.map_outer_iters * n_map, r
+        assert r["gn"] == step_launches(cfg, n, n_map)["gn"], r
     assert [tuple(p) for p in res["loop_pairs"]] == MESH_LOOP_PAIRS
     assert res["attempts"] == LOOP_ATTEMPTS, f"{res['attempts']} attempts"
     assert abs(ate - MESH_ATE_M) <= LOOP_ATE_TOL_M and \

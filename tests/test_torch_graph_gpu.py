@@ -84,9 +84,10 @@ def test_replays_count_their_launches(cuda):
     kernels.LAUNCHES.clear()
     pipe.process(pts[0], mask[0])                  # captures, then replays frame 0
     g = pipe.graphs
-    assert g.launches[True] == {"ccl": 1, "nn1": 2 * cfg.odom_outer_iters,
-                                "knn": 2 * cfg.map_outer_iters}
-    assert g.launches[False] == {"ccl": 1, "nn1": 2 * cfg.odom_outer_iters}
+    odo = 2 * cfg.odom_outer_iters          # 1-NN searches and solves (gn)
+    assert g.launches[True] == {"ccl": 1, "nn1": odo, "knn": 2 * cfg.map_outer_iters,
+                                "gn": odo + cfg.map_outer_iters}
+    assert g.launches[False] == {"ccl": 1, "nn1": odo, "gn": odo}
     assert g.warmup_launches == g.launches[True]
     assert dict(kernels.LAUNCHES) == g.launches[True]
     for k in range(1, 4):

@@ -301,3 +301,208 @@ def test_loop_shapes_match_plain(cuda, case):
     torch.cuda.synchronize()
     assert torch.equal(d, d_p) and torch.equal(i, i_p)
     assert bool((d[qm] < 1e30).all())
+
+
+# ---------------------------------------------------------------------------
+# the gn kernel (one Gauss-Newton solve over a Correspondences batch)
+# ---------------------------------------------------------------------------
+
+# the pose the scene's rows are seen from: [tx, ty, tz, roll, pitch, yaw]
+GN_TRUE_PARAMS = np.array([0.4, -0.3, 0.15, 0.03, -0.02, 0.08])
+# the frame's three solves: (rows of each kind in order, solve options)
+GN_COMPOSITIONS = {
+    # odometry step A: the surf rows (max_flat), z only
+    "step_a": (((1, 512),), dict(dims=(0, 0, 1, 0, 0, 0), min_count=10)),
+    # odometry step B: surf rows then corner rows (max_sharp), the column
+    # masks by kind
+    "step_b": (((1, 512), (0, 256)),
+               dict(dims=(1, 1, 1, 0, 0, 1), min_count=10,
+                    kind_cols=((1, 1, 0, 0, 0, 1), (0, 0, 1, 0, 0, 0),
+                               (0, 0, 1, 0, 0, 0)))),
+    # mapping: corner rows (kf_corner_cap) then surf and outlier rows,
+    # 6-DoF with the degeneracy projector
+    "mapping": (((0, 1024), (2, 3072)),
+                dict(dims=(1,) * 6, iters=20, eig_floor=1.0)),
+}
+
+
+def rpy_to_rot_np(rpy):
+    r, p, y = rpy
+    Rx = np.array([[1, 0, 0], [0, np.cos(r), -np.sin(r)], [0, np.sin(r), np.cos(r)]])
+    Ry = np.array([[np.cos(p), 0, np.sin(p)], [0, 1, 0], [-np.sin(p), 0, np.cos(p)]])
+    Rz = np.array([[np.cos(y), -np.sin(y), 0], [np.sin(y), np.cos(y), 0], [0, 0, 1]])
+    return Rz @ Ry @ Rx
+
+
+def gn_scene(parts, seed, live=0.7, noise=0.01):
+    """A seeded batch for one solve, as numpy arrays (the Correspondences
+    fields, f32, and kind int32): ``parts`` is ((kind, rows), ...) in row
+    order.  Each kind's first ``live`` share of rows has weight 1 and is a
+    point of a world plane or line seen from GN_TRUE_PARAMS with
+    ``noise`` m of Gaussian noise, its partners drawn on the same plane or
+    line (kind 0: two points 0.1 m either side, as the mapping's line fit
+    gives them; kind 1: three nearby points of the plane; kind 2: the unit
+    normal and offset); the rest is padding with weight 0 and zeros."""
+    rng = np.random.default_rng(seed)
+    R, t = rpy_to_rot_np(GN_TRUE_PARAMS[3:]), GN_TRUE_PARAMS[:3]
+    planes = [(np.array([0, 0, 1.0]), -1.5), (np.array([1.0, 0, 0]), -8.0),
+              (np.array([0, 1.0, 0]), 6.0), (np.array([0.6, 0.8, 0]), -9.0)]
+    out = {k: [] for k in ("cp", "pj", "pl", "pm", "scalar", "kind", "weight")}
+    for kind, n in parts:
+        m = int(n * live)
+        cp, pj, pl, pm = (np.zeros((n, 3)) for _ in range(4))
+        scalar, w = np.zeros(n), np.zeros(n)
+        w[:m] = 1.0
+        for i in range(m):
+            if kind == 0:
+                d = rng.normal(size=3)
+                d /= np.linalg.norm(d)
+                X = rng.uniform(-10, 10, 3) + rng.uniform(-2, 2) * d
+                pj[i], pl[i] = X + 0.1 * d, X - 0.1 * d
+                X = X + rng.uniform(-0.5, 0.5) * d
+            else:
+                nrm, off = planes[rng.integers(len(planes))]
+                X = rng.uniform(-10, 10, 3)
+                X -= (nrm @ X + off) * nrm
+                if kind == 1:
+                    a = np.cross(nrm, rng.normal(size=3))
+                    a /= np.linalg.norm(a)
+                    b = np.cross(nrm, a)
+                    pj[i] = X + rng.uniform(-0.3, 0.3) * a
+                    pl[i] = X + 0.5 * a + rng.uniform(-0.2, 0.2) * b
+                    pm[i] = X + 0.5 * b + rng.uniform(-0.2, 0.2) * a
+                else:
+                    pj[i], scalar[i] = nrm, off
+            cp[i] = R.T @ (X + rng.normal(0, noise, 3) - t)
+        out["cp"].append(cp)
+        out["pj"].append(pj)
+        out["pl"].append(pl)
+        out["pm"].append(pm)
+        out["scalar"].append(scalar)
+        out["kind"].append(np.full(n, kind))
+        out["weight"].append(w)
+    return {k: np.concatenate(v).astype(np.int32 if k == "kind" else np.float32)
+            for k, v in out.items()}
+
+
+def gn_case(name, seed=0):
+    """(scene dict, solve keyword arguments) of a composition or an edge
+    case: "sign0" (step A from the identity with rows whose point is its
+    plane's first point: a zero signed distance, sign(0) = 0),
+    "eps_floor" (step B with lines of two equal points and planes of three
+    collinear points, at the EPS floor), "zero_weights" (mapping with every
+    weight 0: no step), "singular" (every weight 0, no damping, no
+    min_count: H = 0, a zero pivot, no step), "nonfinite" (mapping with
+    NaN and inf rows of weight 1, dropped) and "prior" (step B with a
+    prior toward params0)."""
+    base = {"sign0": "step_a", "eps_floor": "step_b", "zero_weights": "mapping",
+            "singular": "mapping", "nonfinite": "mapping", "prior": "step_b"}.get(name, name)
+    parts, opts = GN_COMPOSITIONS[base]
+    scene = gn_scene(parts, seed)
+    opts = dict(opts, iters=opts.get("iters", 5))
+    params0 = np.zeros(6, np.float32) if name == "sign0" else \
+        (GN_TRUE_PARAMS * 0.6).astype(np.float32)
+    if name == "sign0":
+        scene["cp"][:40] = scene["pj"][:40]
+    elif name == "eps_floor":
+        scene["pl"][:20] = scene["pj"][:20]                       # plane rows
+        scene["pm"][:20] = 2 * scene["pj"][:20] - scene["pl"][20:40]
+        scene["pl"][:20] = scene["pl"][20:40]                     # collinear
+        scene["pl"][512:532] = scene["pj"][512:532]               # line rows
+    elif name in ("zero_weights", "singular"):
+        scene["weight"][:] = 0.0
+        if name == "singular":
+            opts = dict(opts, damping=0.0)
+    elif name == "nonfinite":
+        scene["cp"][3, 1] = np.nan
+        scene["pj"][1500, 0] = np.inf
+        scene["pl"][10, 2] = np.nan
+    elif name == "prior":
+        opts = dict(opts, prior_weight=2.0)
+    return scene, params0, opts
+
+
+def gn_torch(scene, params0, opts, dev):
+    """The torch arguments of solve_correspondences for a gn_case."""
+    from alego_tpu_torch.ops.residuals import Correspondences
+    corr = Correspondences(*(torch.from_numpy(scene[k]).to(dev)
+                             for k in Correspondences._fields))
+    kw = {k: v for k, v in opts.items() if k not in ("dims", "iters", "kind_cols")}
+    if "kind_cols" in opts:
+        kw["kind_cols"] = torch.tensor(opts["kind_cols"], dtype=torch.float32).to(dev)
+    return (corr, torch.from_numpy(params0).to(dev), opts["iters"],
+            torch.tensor(opts["dims"], dtype=torch.bool).to(dev), 0.1), kw
+
+
+# kernel against plain solve, params (m, rad): the two sum H and g in
+# other orders (f64 against cuBLAS's f32), so they agree to the solve's
+# convergence on these scenes, not bit for bit
+GN_TOL = 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["step_a", "step_b", "mapping", "sign0", "eps_floor",
+                                  "zero_weights", "singular", "nonfinite", "prior"])
+def test_gn_kernel_matches_plain(cuda, case):
+    from alego_tpu_torch.ops import gauss_newton as gn
+    args, kw = gn_torch(*gn_case(case), cuda)
+    done = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = gn.solve_correspondences_cuda(*args, **kw, iters_out=done)
+    want = gn.solve_correspondences_plain(*args, **kw)
+    torch.cuda.synchronize()
+    p0 = args[1]
+    if case in ("zero_weights", "singular"):   # no step: params0 to the bit
+        assert torch.equal(got, p0) and torch.equal(want, p0)
+        assert int(done) == 1                       # the stop after a zero step
+        return
+    assert bool(torch.isfinite(got).all()) and float((got - p0).abs().max()) > 1e-2
+    assert 1 <= int(done) <= args[2]
+    err = float((got - want).abs().max())
+    assert err <= GN_TOL, f"{case}: kernel and plain solve {err:.3e} apart"
+
+
+@pytest.mark.gpu
+def test_gn_runs_only_its_kernel(cuda):
+    """One launch of gn_solve per solve and no other device work; the count
+    grows by one."""
+    from torch.profiler import ProfilerActivity, profile
+    from alego_tpu_torch import kernels
+    from alego_tpu_torch.ops import gauss_newton as gn
+    args, kw = gn_torch(*gn_case("mapping"), cuda)
+    gn.solve_correspondences(*args, **kw)
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["gn"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gn.solve_correspondences(*args, **kw)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("gn_solve" in n for n in names), names
+    assert kernels.LAUNCHES["gn"] == before + 1
+
+
+@pytest.mark.gpu
+def test_gn_kernel_replays_from_a_graph(cuda):
+    """Captured into a CUDA graph, the solve's replay gives the eager
+    answer bit for bit (one block, sums in a fixed order), on new inputs
+    copied into the captured ones too."""
+    from alego_tpu_torch.ops import gauss_newton as gn
+    args, kw = gn_torch(*gn_case("step_b"), cuda)
+    eager = gn.solve_correspondences_cuda(*args, **kw)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        gn.solve_correspondences_cuda(*args, **kw)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = gn.solve_correspondences_cuda(*args, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    args2, kw2 = gn_torch(*gn_case("step_b", seed=1), cuda)
+    for a, b in zip(args[0], args2[0]):
+        a.copy_(b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, gn.solve_correspondences_cuda(*args2, **kw2))

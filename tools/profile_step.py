@@ -32,7 +32,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the port's own kernels, by the name each has in csrc/*.cu
 PORT_KERNELS = ("ccl_tiles", "ccl_seams", "ccl_flatten", "nn1_chunks",
-                "nn1_reduce", "knn_chunks", "knn_merge")
+                "nn1_reduce", "knn_chunks", "knn_merge", "gn_solve")
 
 
 def summarize(win: dict, n: int, wall_s: float) -> dict:

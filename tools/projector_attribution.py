@@ -6,6 +6,10 @@ Jacobi (``ops.gauss_newton.eigh6``), which a CUDA graph can capture.
 Usage: ``python3 tools/projector_attribution.py`` from the root of the
 repository, on a machine with a CUDA GPU.
 
+The frame step's solves run as the ``gn`` kernel, whose projector is its
+own; here they run as the plain solve (``solve_correspondences_plain``),
+whose projector is the one swapped below.
+
 Runs each of these ``chip_smoke.py`` paths three ways and prints their
 answers as one JSON object: the main path's 32 frames (unaligned ATE,
 keyframes), the 192-frame loop path (loop pairs, attempts, ATE of the
@@ -50,6 +54,7 @@ def main():
     sys.path.insert(0, REPO)
     import chip_smoke as cs
     from alego_tpu_torch import PipelineConfig
+    from alego_tpu_torch.models import laser_mapping as lm, laser_odometry as lo
     from alego_tpu_torch.models.pipeline import SlamPipeline
     from alego_tpu_torch.ops import gauss_newton as gn
     from alego_tpu_torch.utils.metrics import ate_rmse
@@ -66,6 +71,8 @@ def main():
         P = jacobi(H, eig_floor)
         return P + 1e-7 * torch.randn(P.shape, generator=gen, device=P.device, dtype=P.dtype)
 
+    kernel_solve = lo.solve_correspondences
+    lo.solve_correspondences = lm.solve_correspondences = gn.solve_correspondences_plain
     out = {}
     for way, proj, graphed in (("eigh", eigh_projector, False), ("jacobi", jacobi, True),
                                ("jacobi_perturbed", perturbed, False)):
@@ -90,6 +97,7 @@ def main():
         out[way] = res
         print(f"{way}: {json.dumps(res)}", flush=True)
     gn.degeneracy_projector = jacobi
+    lo.solve_correspondences = lm.solve_correspondences = kernel_solve
     SlamPipeline._graphed = True
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
