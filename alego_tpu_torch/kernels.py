@@ -4,7 +4,9 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, loaded through ``ctypes``; no PyTorch header is
 compiled, so a build takes seconds.  Libraries are built at first use into
 ``alego_tpu_torch/_build/`` (ignored by git), named by a hash of their
-source, so an edited source is rebuilt and a stale library is never loaded.
+source, so an edited source is rebuilt and a stale library is never loaded;
+the compiler's output (``-Xptxas -v``: registers, stack frame, spills) is
+kept beside each library (``lib<name>-<hash>.log``, :func:`build_log`).
 Nothing here runs at import time.
 """
 
@@ -57,13 +59,14 @@ def _command(name: str, out: Path):
 
 
 def build(names=SOURCES) -> dict:
-    """Compile every missing library, one ``nvcc`` per source, all started
-    together.  Returns {name: compiler output}; raises if any build fails."""
+    """Compile every missing library (or one built without its log), one
+    ``nvcc`` per source, all started together.  Returns {name: compiler
+    output} of the sources compiled; raises if any build fails."""
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = _target(name)
-        if out.exists():
+        if out.exists() and out.with_suffix(".log").exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(_command(name, tmp), stdout=subprocess.PIPE,
@@ -75,10 +78,22 @@ def build(names=SOURCES) -> dict:
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{logs[name]}")
             continue
+        tmp_log = tmp.with_suffix(".log")
+        tmp_log.write_text(logs[name])
         os.replace(tmp, out)
+        os.replace(tmp_log, out.with_suffix(".log"))
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return logs
+
+
+def build_log(name: str) -> str:
+    """The compiler's output for ``csrc/<name>.cu`` as it stands, built
+    first if it is not."""
+    log = _target(name).with_suffix(".log")
+    if not log.exists():
+        build((name,))
+    return log.read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

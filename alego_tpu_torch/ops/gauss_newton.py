@@ -13,8 +13,9 @@ whole solve can be captured in a CUDA graph.
 
 :func:`solve_correspondences` is the frame step's solve over a
 :class:`~.residuals.Correspondences` batch: on a CUDA tensor one launch of
-the ``csrc/gn.cu`` kernel runs the whole solve; on a CPU tensor its plain
-version, ``solve_gn`` over ``eval_correspondences``, runs.
+the ``csrc/gn.cu`` kernel runs the whole solve (a thread-block cluster of
+:func:`gn_plan`'s blocks); on a CPU tensor its plain version, ``solve_gn``
+over ``eval_correspondences``, runs.
 """
 
 from __future__ import annotations
@@ -238,11 +239,29 @@ def solve_correspondences_plain(corr: Correspondences, params0, iters: int,
                     min_count, param_tol, eig_floor, prior_weight, max_step)
 
 
+# the gn kernel's launch (csrc/gn.cu): threads per block, and the most
+# blocks in its cluster (the portable cluster size)
+GN_THREADS, GN_MAX_BLOCKS = 256, 8
+
+
+def gn_plan(n: int, prior: bool) -> tuple:
+    """The ``gn`` kernel's cluster over ``n`` batch rows (and the prior's 6
+    rows): (blocks, chunk).  One block per ``GN_THREADS`` rows, at most
+    ``GN_MAX_BLOCKS``; block b owns the batch rows [b * chunk, min((b + 1)
+    * chunk, n)), chunk a multiple of 4 (so each block's slice of every
+    field starts 16-byte aligned for its bulk copy), and the last block
+    also the prior's rows."""
+    rows = n + (6 if prior else 0)
+    blocks = min(GN_MAX_BLOCKS, max(1, -(-rows // GN_THREADS)))
+    chunk = -(-n // blocks)
+    return blocks, chunk + (-chunk) % 4
+
+
 def _gn_launcher():
     fn = kernels.library("gn").alego_gn_solve
     if fn.argtypes is None:   # declare once: pointers must not be cut to int
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        fn.argtypes = [p] * 7 + [i, p, p, p, p, p, i, d, d, i, d, d, d, d, p]
+        fn.argtypes = [p] * 7 + [i, i, i, p, p, p, p, p, i, d, d, i, d, d, d, d, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -276,20 +295,22 @@ def solve_correspondences_cuda(corr: Correspondences, params0, iters: int,
                                param_tol: float = 1e-4, eig_floor: float = 0.0,
                                prior_weight: float = 0.0, max_step: float = 1.0,
                                iters_out=None):
-    """One launch of the ``gn`` kernel: the whole solve; returns the params
-    [6].  ``iters_out`` ([1] int32 on the device, or None) receives the
-    iterations run.  No PyTorch op runs on the device besides the output's
-    allocation."""
+    """One launch of the ``gn`` kernel: the whole solve, on a cluster of
+    :func:`gn_plan`'s blocks; returns the params [6].  ``iters_out`` ([1]
+    int32 on the device, or None) receives the iterations run.  No PyTorch
+    op runs on the device besides the output's allocation.  A refused
+    launch raises."""
     _check_batch(corr, params0, dim_mask, kind_cols)
     if iters_out is not None and (iters_out.dtype != torch.int32
                                   or iters_out.device != params0.device):
         raise ValueError("iters_out must be an int32 tensor on params0's device")
     out = torch.empty(6, dtype=torch.float32, device=params0.device)
     stream = torch.cuda.current_stream(params0.device).cuda_stream
+    n = corr.cp.shape[0]
     status = _gn_launcher()(
         corr.cp.data_ptr(), corr.pj.data_ptr(), corr.pl.data_ptr(), corr.pm.data_ptr(),
         corr.scalar.data_ptr(), corr.kind.data_ptr(), corr.weight.data_ptr(),
-        corr.cp.shape[0], None if kind_cols is None else kind_cols.data_ptr(),
+        n, *gn_plan(n, prior_weight > 0.0), None if kind_cols is None else kind_cols.data_ptr(),
         dim_mask.data_ptr(), params0.data_ptr(), out.data_ptr(),
         None if iters_out is None else iters_out.data_ptr(), int(iters),
         float(huber_delta), float(damping), int(min_count), float(param_tol),

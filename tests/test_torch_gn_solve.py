@@ -15,6 +15,11 @@ last small functions, against the JAX reference on the CPU.
 * the plain path against the closures the odometry and mapping solves ran
   before the batch (the rows evaluated per family and concatenated): bit
   for bit;
+* the ``gn`` kernel's launch plan (``gn_plan``): its blocks' rows cover
+  the batch once and the prior's rows have one owner;
+* ``kernels.build`` keeps each compiler log beside its library (the
+  ``gn`` row of ``chip_smoke.py`` reads ``-Xptxas -v`` from it), with a
+  stand-in compiler, as this machine has no ``nvcc``;
 * ``knn.knn``, ``knn.nn1``, ``knn.radius_count`` and ``se3.compose_mats``
   against the reference's: indices and counts equal, distances within
   1e-3 (the expansion |q|^2 - 2 q.r + |r|^2 rounds terms up to ~5400 m^2).
@@ -162,6 +167,60 @@ def test_plain_solve_equals_closures(name):
     scene, p0, opts = _case(name)
     args, kw = gn_torch(scene, p0, opts, "cpu")
     assert torch.equal(tgn.solve_correspondences(*args, **kw), _closure_solve(name, args, kw))
+
+
+@pytest.mark.parametrize("prior", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 6, 255, 257, 511, 512, 513, 768, 4096, 4097, 8192,
+                               30001])
+def test_gn_plan_covers_the_rows(n, prior):
+    """The gn kernel's cluster (gn_plan): 1-8 blocks; the blocks' batch
+    rows, as csrc/gn.cu cuts them, cover [0, n) once, each starting at a
+    multiple of 4; the prior's 6 rows have one owner, the last block; at
+    most GN_THREADS rows a block (one a thread) up to 8 blocks' worth, and
+    8 blocks past 7 blocks' worth (the 4096-row mapping solve)."""
+    blocks, chunk = tgn.gn_plan(n, prior)
+    assert 1 <= blocks <= tgn.GN_MAX_BLOCKS and chunk % 4 == 0 and blocks * chunk >= n
+    covered = np.zeros(n, int)
+    owned = []
+    for b in range(blocks):
+        first = min(b * chunk, n)
+        mine = min(first + chunk, n) - first
+        assert first % 4 == 0 or mine == 0
+        covered[first:first + mine] += 1
+        owned.append(mine + (6 if prior and b == blocks - 1 else 0))
+    assert (covered == 1).all()
+    rows = n + (6 if prior else 0)
+    assert sum(owned) == rows
+    if rows <= tgn.GN_MAX_BLOCKS * tgn.GN_THREADS:
+        assert max(owned) <= tgn.GN_THREADS
+    assert (blocks == 8) == (rows > 7 * tgn.GN_THREADS)
+
+
+def test_kernels_build_keeps_the_compiler_log(tmp_path, monkeypatch):
+    """A build writes the library and its compiler output beside it; a
+    second build compiles nothing; a library without its log is built
+    again; a failed build raises with the compiler's output."""
+    from alego_tpu_torch import kernels
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'echo "ptxas info    : Used 42 registers"\n'
+                    'case "$3" in *ccl.cu) echo "error: no"; exit 1;; esac\n'
+                    'echo lib > "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(kernels, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(kernels, "BUILD", tmp_path / "build")
+    logs = kernels.build(("gn",))
+    assert "Used 42 registers" in logs["gn"]
+    lib = kernels._target("gn")
+    assert lib.read_text() == "lib\n"
+    assert kernels.build_log("gn") == logs["gn"]
+    assert kernels.build(("gn",)) == {}
+    lib.with_suffix(".log").unlink()
+    assert kernels.build_log("gn") == logs["gn"]
+    with pytest.raises(RuntimeError, match="error: no"):
+        kernels.build(("ccl",))
+    assert sorted(f.name for f in (tmp_path / "build").iterdir()) == sorted(
+        [lib.name, lib.with_suffix(".log").name])
 
 
 def _search_inputs():

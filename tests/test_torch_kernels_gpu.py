@@ -461,33 +461,129 @@ def test_gn_kernel_matches_plain(cuda, case):
     assert err <= GN_TOL, f"{case}: kernel and plain solve {err:.3e} apart"
 
 
+def graph_nodes(graph):
+    """The nodes of a CUDA graph captured with ``keep_graph=True``, in the
+    order CUDA lists them: (type, kernel name or None, cluster's blocks or
+    None), read through libcuda (the CUDA driver API), not the profiler."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def ok(status, what):
+        assert status == 0, f"{what}: CUresult {status}"
+
+    class KernelParams(ctypes.Structure):    # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                    ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    ok(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    types = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
+    out = []
+    for node in nodes:
+        node = ctypes.c_void_p(node)
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:
+            out.append((types.get(kind.value, kind.value), None, None))
+            continue
+        prm = KernelParams()
+        ok(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(prm)),
+           "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if prm.func:
+            ok(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(prm.func)), "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(prm.kern)),
+               "cuKernelGetName")
+        value = (ctypes.c_uint * 16)()          # CUlaunchAttributeValue (64 bytes)
+        ok(cu.cuGraphKernelNodeGetAttribute(node, 4, value),   # CLUSTER_DIMENSION
+           "cuGraphKernelNodeGetAttribute")
+        out.append(("kernel", name.value.decode(), value[0] * value[1] * value[2]))
+    return out
+
+
 @pytest.mark.gpu
 def test_gn_runs_only_its_kernel(cuda):
     """One launch of gn_solve per solve and no other device work; the count
-    grows by one."""
-    from torch.profiler import ProfilerActivity, profile
+    grows by one a solve.  The solve's device work is read from a CUDA
+    graph that captures it (the wrapper runs the same code eagerly and
+    under capture): one node, the gn_solve kernel on gn_plan's cluster,
+    whose replay gives the eager answer bit for bit."""
     from alego_tpu_torch import kernels
     from alego_tpu_torch.ops import gauss_newton as gn
     args, kw = gn_torch(*gn_case("mapping"), cuda)
-    gn.solve_correspondences(*args, **kw)
-    torch.cuda.synchronize()
     before = kernels.LAUNCHES["gn"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        gn.solve_correspondences(*args, **kw)
-        torch.cuda.synchronize()
-    names = [ev.name for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA]
-    assert names and all("gn_solve" in n for n in names), names
+    eager = gn.solve_correspondences(*args, **kw)
+    torch.cuda.synchronize()
     assert kernels.LAUNCHES["gn"] == before + 1
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = gn.solve_correspondences(*args, **kw)
+    assert kernels.LAUNCHES["gn"] == before + 2
+    nodes = graph_nodes(graph)
+    blocks = gn.gn_plan(args[0].cp.shape[0], kw.get("prior_weight", 0.0) > 0)[0]
+    assert len(nodes) == 1 and nodes[0][0] == "kernel", nodes
+    assert "gn_solve" in nodes[0][1] and nodes[0][2] == blocks, nodes
+    graph.instantiate()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def gn_rows_case(rows, seed=3):
+    """A mapping solve over ``rows`` rows, a quarter of them lines and the
+    rest fitted planes, every row weighted; with 0 or 1 rows a prior
+    toward params0 keeps the system well posed."""
+    corner = rows // 4
+    scene = gn_scene(((0, corner), (2, rows - corner)), seed, live=1.0)
+    opts = dict(GN_COMPOSITIONS["mapping"][1])
+    if rows < 2:
+        opts["prior_weight"] = 2.0
+    return scene, (GN_TRUE_PARAMS * 0.6).astype(np.float32), opts
 
 
 @pytest.mark.gpu
-def test_gn_kernel_replays_from_a_graph(cuda):
-    """Captured into a CUDA graph, the solve's replay gives the eager
-    answer bit for bit (one block, sums in a fixed order), on new inputs
-    copied into the captured ones too."""
+@pytest.mark.parametrize("rows, blocks", [(0, 1), (1, 1), (255, 1), (257, 2), (511, 2),
+                                          (513, 3), (2048, 8), (4096, 8), (4097, 8),
+                                          (8192, 8), (30000, 8)])
+def test_gn_cluster_edges_match_plain(cuda, rows, blocks):
+    """Row counts at the edges of the cluster (gauss_newton.gn_plan, 256
+    threads a block): no batch row, only the prior's; one row; one block
+    one row a thread; a second block; 2 and 3 blocks (the odometry
+    solves); 8 blocks one row a thread; two rows a thread (the mapping
+    solve); a ragged last block; 4 rows a thread; more rows a block than
+    it stages (3456: the rest read from global memory).  Against the
+    plain solve, and two launches bit for bit."""
     from alego_tpu_torch.ops import gauss_newton as gn
-    args, kw = gn_torch(*gn_case("step_b"), cuda)
+    args, kw = gn_torch(*gn_rows_case(rows), cuda)
+    assert gn.gn_plan(rows, kw.get("prior_weight", 0.0) > 0)[0] == blocks
+    got = gn.solve_correspondences_cuda(*args, **kw)
+    again = gn.solve_correspondences_cuda(*args, **kw)
+    want = gn.solve_correspondences_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    if rows == 0:       # the prior alone: no step
+        assert torch.equal(got, args[1])
+    err = float((got - want).abs().max())
+    assert err <= GN_TOL, f"{rows} rows: kernel and plain solve {err:.3e} apart"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["step_b", "mapping"])
+def test_gn_kernel_replays_from_a_graph(cuda, case):
+    """Captured into a CUDA graph, the solve's cluster launch (step B: 3
+    blocks; mapping: 8 blocks and the projector) replays the eager answer
+    bit for bit (the sums' order is fixed: thread, warp, block, cluster
+    rank; no atomics), on new inputs copied into the captured ones too."""
+    from alego_tpu_torch.ops import gauss_newton as gn
+    args, kw = gn_torch(*gn_case(case), cuda)
     eager = gn.solve_correspondences_cuda(*args, **kw)
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -500,7 +596,7 @@ def test_gn_kernel_replays_from_a_graph(cuda):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
-    args2, kw2 = gn_torch(*gn_case("step_b", seed=1), cuda)
+    args2, kw2 = gn_torch(*gn_case(case, seed=1), cuda)
     for a, b in zip(args[0], args2[0]):
         a.copy_(b)
     graph.replay()
