@@ -22,7 +22,7 @@
   eager loop of ``slam_step`` with the same updates between frames.
 
 The reference's searches run its Pallas kernels in interpret mode (see
-test_torch_mapping); its ``mapping_step`` is compiled once for the file.
+test_torch_pipeline); its ``mapping_step`` is compiled once for the file.
 """
 
 import numpy as np
@@ -39,8 +39,7 @@ from alego_tpu_torch.models import laser_mapping as tlm, pipeline as tpipe
 from alego_tpu_torch.ops import deskew as tdk, gauss_newton as tgn
 from alego_tpu_torch.ops.segmentation import component_sizes
 
-from test_torch_mapping import pallas_search
-from test_torch_odometry import assert_pose_close
+from test_torch_pipeline import assert_pose_close, pallas_search
 
 # one intra-op thread: the suite runs in several test processes at once,
 # where more threads per process only contend for the cores

@@ -65,7 +65,7 @@ from alego_tpu_torch.ops.features import extract_features
 from alego_tpu_torch.parallel import launch, map_shard, multichip, ranks, schur
 from alego_tpu_torch.utils import synthetic
 
-from test_torch_mapping import pallas_search
+from test_torch_pipeline import pallas_search
 
 # one intra-op thread: the suite runs in several test processes at once,
 # where more threads per process only contend for the cores
@@ -79,6 +79,10 @@ SIGMA = (1e-4,) * 6
 N_SEQ = 8          # frames of the distributed run
 N_LANE = 4         # frames of each lane
 CARRY = 4          # the mapping step of (c) is frame CARRY's, from the state before it
+# a rank group still running after this is stopped and fails its tests.
+# Each group runs inside the `runs` fixture, whose setup took 67-100 s in
+# Tier-1 runs on 8 shared cores: 3x the longest
+GROUP_TIMEOUT_S = 300
 
 
 def _loop_scene(cfg):
@@ -231,12 +235,12 @@ def runs(data):
             (ranks.mapping_step, (cfg, *carry.result()[1])),
             (ranks.loop_closure_step, (cfg, data["scene"])),
             (ranks.distributed_run, (cfg, data["seq_dir"])),
-            (ranks.lanes_run, (cfg, data["lanes_dir"]))], device="cpu", timeout=300)
+            (ranks.lanes_run, (cfg, data["lanes_dir"]))], device="cpu", timeout=GROUP_TIMEOUT_S)
         d4 = launch.launch(ranks.run_jobs, 4, [
             *[(ranks.sharded_knn, (5, *case)) for case in data["knn"]],
             (ranks.schur_solve, (data["graph"], SIGMA, 1, 1e9)),
             (ranks.multichip_step, (cfg, pts[:4], mask[:4], *data["chain"]))],
-            device="cpu", timeout=300)
+            device="cpu", timeout=GROUP_TIMEOUT_S)
         single = (_single(cfg, pts, mask)[0], _single(cfg, *data["lane_b"])[0])
         knn_j, schur_j = ref4.result()
         return dict(d2=d2.result(), d4=d4, single=single,
@@ -358,7 +362,9 @@ def test_lanes_equal_single_runs(runs):
 def test_lane_state_from_a_batched_reference_state(data):
     """A lane of the reference's batched state (its ``ShardedSlamPipeline``
     state) carries across as that lane's ``SlamState``."""
-    one = jax.tree_util.tree_map(np.asarray, jpipe.init_state(j_tiny_config(**BASE)))
+    # one compiled program: bit for bit the eager constructor's leaves
+    one = jax.tree_util.tree_map(np.asarray, jax.jit(jpipe.init_state, static_argnums=0)(
+        j_tiny_config(**BASE)))
     batched = jax.tree_util.tree_map(
         lambda x: np.stack([x, x if x.dtype == bool else x + np.ones((), x.dtype)]), one)
     state = state_from_reference(multichip.lane_state(batched, 1), "cpu", data["cfg"])

@@ -24,7 +24,7 @@ and checkpoints, against the JAX reference where it has a counterpart.
 
 The reference's run is traced and compiled on a worker thread while the
 port-only tests run, and its neighbour searches run its Pallas kernels in
-interpret mode (see test_torch_mapping).
+interpret mode (see test_torch_pipeline).
 """
 
 import warnings
@@ -44,8 +44,7 @@ from alego_tpu_torch.models.pipeline import tree_from_reference
 from alego_tpu_torch.ops import deskew as tdk
 from alego_tpu_torch.utils import synthetic as tsyn
 
-from test_torch_mapping import pallas_search
-from test_torch_odometry import assert_pose_close
+from test_torch_pipeline import assert_pose_close, pallas_search
 
 # one intra-op thread: the suite runs in several test processes at once,
 # where more threads per process only contend for the cores
@@ -155,7 +154,7 @@ def test_checkpoint_layout_is_the_reference(cfg, process_run):
     """The npz holds the reference's leaves in the reference's order; a
     pipeline of other capacities refuses it."""
     ck, cfg_p = process_run[2], process_run[3].cfg
-    ref = jax.tree_util.tree_leaves(jpipe.init_state(cfg_p))
+    ref = jax.tree_util.tree_leaves(jax.jit(jpipe.init_state, static_argnums=0)(cfg_p))
     with np.load(ck) as data:
         assert len([f for f in data.files if f.startswith("arr_")]) == len(ref)
         for i, leaf in enumerate(ref):
