@@ -152,7 +152,7 @@ def solve_gn(residual_fn: Callable[[torch.Tensor], tuple],
              huber_delta: float, damping: float = 1e-6,
              min_count: int = 0, param_tol: float = 1e-4,
              eig_floor: float = 0.0, prior_weight: float = 0.0,
-             max_step: float = 1.0) -> torch.Tensor:
+             max_step: float = 1.0, iters_out=None) -> torch.Tensor:
     """GN with at most ``iters`` iterations and Ceres-style early stop.
 
     ``eig_floor > 0`` projects every update through the degeneracy
@@ -160,7 +160,10 @@ def solve_gn(residual_fn: Callable[[torch.Tensor], tuple],
     linearisation (upstream LeGO-LOAM's iterCount == 0 test).
     ``prior_weight > 0`` adds a Tikhonov prior toward ``params0`` on the
     masked dims.  Each step is capped at ``max_step`` (the bounding role of
-    Ceres's trust region)."""
+    Ceres's trust region).  ``iters_out`` ([1] int32 on params0's device,
+    or None) receives the iterations run, the reference's ``while_loop``
+    count, written on the device."""
+    _check_iters_out(iters_out, params0)
     dt, dev = params0.dtype, params0.device
     m = dim_mask.to(dt)
     eye = torch.eye(6, dtype=dt, device=dev)
@@ -188,6 +191,7 @@ def solve_gn(residual_fn: Callable[[torch.Tensor], tuple],
 
     p = params0
     live = torch.ones((), dtype=torch.bool, device=dev)
+    done = torch.zeros((), dtype=torch.int32, device=dev)
     for it in range(iters):
         r, J, w = rJw if it == 0 else res_with_prior(p)
         p_new = gn_step(p, r, J, w, dim_mask, huber_delta, damping, mc)
@@ -198,8 +202,19 @@ def solve_gn(residual_fn: Callable[[torch.Tensor], tuple],
         p_new = p + d
         step = torch.max(torch.abs(p_new - p))
         p = torch.where(live, p_new, p)
+        if iters_out is not None:
+            done = done + live.to(torch.int32)
         live = live & (step > param_tol)
+    if iters_out is not None:
+        iters_out.copy_(done.reshape(1))
     return p
+
+
+def _check_iters_out(iters_out, params0):
+    if iters_out is not None and (iters_out.dtype != torch.int32
+                                  or iters_out.device != params0.device
+                                  or tuple(iters_out.shape) != (1,)):
+        raise ValueError("iters_out must be a [1] int32 tensor on params0's device")
 
 
 # Dim masks for the reference's two-step scan-to-scan split
@@ -223,10 +238,12 @@ def solve_correspondences_plain(corr: Correspondences, params0, iters: int,
                                 dim_mask, huber_delta: float, *, kind_cols=None,
                                 damping: float = 1e-6, min_count: int = 0,
                                 param_tol: float = 1e-4, eig_floor: float = 0.0,
-                                prior_weight: float = 0.0, max_step: float = 1.0):
+                                prior_weight: float = 0.0, max_step: float = 1.0,
+                                iters_out=None):
     """The plain version of the ``gn`` kernel: :func:`solve_gn` over the
     batch's rows evaluated by kind, each row's Jacobian multiplied by its
-    kind's row of ``kind_cols`` [3, 6] (None: no column mask)."""
+    kind's row of ``kind_cols`` [3, 6] (None: no column mask).
+    ``iters_out``: as the kernel's, the iterations run."""
     def residuals(p):
         r, J = eval_correspondences(p, corr)
         if kind_cols is not None:
@@ -236,7 +253,7 @@ def solve_correspondences_plain(corr: Correspondences, params0, iters: int,
         return r, J, corr.weight
 
     return solve_gn(residuals, params0, iters, dim_mask, huber_delta, damping,
-                    min_count, param_tol, eig_floor, prior_weight, max_step)
+                    min_count, param_tol, eig_floor, prior_weight, max_step, iters_out=iters_out)
 
 
 # the gn kernel's launch (csrc/gn.cu): threads per block, and the most
@@ -301,9 +318,7 @@ def solve_correspondences_cuda(corr: Correspondences, params0, iters: int,
     op runs on the device besides the output's allocation.  A refused
     launch raises."""
     _check_batch(corr, params0, dim_mask, kind_cols)
-    if iters_out is not None and (iters_out.dtype != torch.int32
-                                  or iters_out.device != params0.device):
-        raise ValueError("iters_out must be an int32 tensor on params0's device")
+    _check_iters_out(iters_out, params0)
     out = torch.empty(6, dtype=torch.float32, device=params0.device)
     stream = torch.cuda.current_stream(params0.device).cuda_stream
     n = corr.cp.shape[0]

@@ -43,7 +43,16 @@ phase prints its seconds):
    attempt bit for bit against ``loop_closure_step`` run eagerly on a copy
    of its state, and records its candidate pair, launches, host reads and
    seconds both ways (and writes a checkpoint for phase 7);
-5. kernels against their plain PyTorch versions on the card, at the shapes
+5. ``capped_solves``: every ``gn`` solve of the main path's 32 frames (an
+   eager loop of ``slam_step``) and of the loop path's 192 (``SlamPipeline``
+   without its graphs, its attempts included), each also run by the plain
+   solve on the same inputs on the card: per composition, the solves that
+   ran to their iteration cap (the kernel's ``iters_out``), the solves whose
+   plain solve ran another count, and the kernel's largest distance from
+   the plain solve over the capped, the converged and those solves, printed
+   with the card's name and power limit (reported, not held: a capped
+   solve's answer is where its last iteration lands);
+   kernels against their plain PyTorch versions on the card, at the shapes
    the frame step gives them at the full default geometry, fed from the
    32-frame run's last two frames and the local map it built (CCL also on a
    random maze), and at the loop shapes on the inputs of the loop path's
@@ -322,9 +331,10 @@ def _frame_features(cfg, pts, mask, dev):
     return img, seg, extract_features(seg, cfg)
 
 
-def phase_kernels(cfg, pts, mask, state, gn_log):
+def phase_kernels(cfg, pts, mask, state, gn_log, solves):
     """Every kernel against its plain version at the main-path shapes
-    (``gn_log``: the gn kernel's build report)."""
+    (``gn_log``: the gn kernel's build report; ``solves``: the last solve of
+    each composition over the frames, from :func:`phase_capped_solves`)."""
     import torch
     from alego_tpu_torch.ops import ccl, se3
     from alego_tpu_torch.ops.segmentation import _neighbor_connectivity
@@ -395,38 +405,120 @@ def phase_kernels(cfg, pts, mask, state, gn_log):
                         cfg.map_knn))
 
     # ---- gn: the last solve of each composition over the 32 frames ----
-    rows.append(_gn_row(_record_solves(cfg, pts, mask), gn_log))
+    rows.append(_gn_row(solves, gn_log))
     return rows
 
 
-def _record_solves(cfg, pts, mask):
-    """The inputs of the last solve of each composition, odometry step A
-    (no column mask), step B (its column masks) and the mapping solve, in
-    an eager run of ``slam_step`` over the frames on the card (a graphed
-    frame's solves run inside its replay)."""
-    import torch
-    from alego_tpu_torch.models import laser_mapping as lm, laser_odometry as lo
-    from alego_tpu_torch.ops import gauss_newton as gn
+class _SolveLog:
+    """Every ``gn`` solve of the frame steps run inside it, recorded by
+    wrapping the odometry's and the mapping's ``solve_correspondences``:
+    each solve still runs the kernel (``solve_correspondences_cuda``) and
+    returns its params, with ``iters_out`` asked for.  ``last``: the
+    inputs of the last solve of each composition, odometry step A (no
+    column mask), step B (its column masks) and the mapping solve.  With
+    ``compare``, each solve also runs the plain solve on the same inputs
+    on the card, and ``stats()`` gives per composition the solves, those
+    that ran all their iterations (the cap) and the kernel's largest
+    distance from the plain solve over those and over the ones that
+    stopped early; read once, at the end."""
 
-    real, seen = gn.solve_correspondences, {}
+    def __init__(self, compare=False):
+        self.compare, self.last, self._runs = compare, {}, []
 
-    def recorder(module):
+    def __enter__(self):
+        from alego_tpu_torch.models import laser_mapping as lm, laser_odometry as lo
+        self._mods = lo, lm
+        lo.solve_correspondences = self._solver("odometry")
+        lm.solve_correspondences = self._solver("mapping")
+        return self
+
+    def __exit__(self, *exc):
+        from alego_tpu_torch.ops import gauss_newton as gn
+        for mod in self._mods:
+            mod.solve_correspondences = gn.solve_correspondences
+
+    def _solver(self, module):
+        import torch
+        from alego_tpu_torch.ops import gauss_newton as gn
+
         def solve(corr, params0, iters, dim_mask, huber_delta, **kw):
             kind = module if module == "mapping" else (
                 "step_a" if kw.get("kind_cols") is None else "step_b")
-            seen[kind] = (type(corr)(*(t.clone() for t in corr)), params0.clone(), iters,
-                          dim_mask.clone(), huber_delta,
-                          {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()})
-            return real(corr, params0, iters, dim_mask, huber_delta, **kw)
+            self.last[kind] = (type(corr)(*(t.clone() for t in corr)), params0.clone(), iters,
+                               dim_mask.clone(), huber_delta,
+                               {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()})
+            done = torch.zeros(2, dtype=torch.int32, device=params0.device)
+            out = gn.solve_correspondences_cuda(corr, params0, iters, dim_mask, huber_delta,
+                                                **kw, iters_out=done[:1])
+            err = None
+            if self.compare:
+                want = gn.solve_correspondences_plain(corr, params0, iters, dim_mask,
+                                                      huber_delta, **kw, iters_out=done[1:])
+                err = (out - want).abs().max()
+            self._runs.append((kind, iters, done, err))
+            return out
         return solve
 
-    lo.solve_correspondences, lm.solve_correspondences = recorder("odometry"), recorder("mapping")
-    try:
+    def stats(self):
+        out = {}
+        for kind, cap, done, err in self._runs:
+            it, it_plain = (int(v) for v in done.cpu())
+            s = out.setdefault(kind, dict(solves=0, cap=cap, capped=0, iters_run=0,
+                                          plain_iters_differ=0, above_gn_tol=0,
+                                          max_err_capped=0.0, max_err_converged=0.0,
+                                          max_err_plain_iters_differ=0.0))
+            s["solves"] += 1
+            s["iters_run"] += it
+            s["capped"] += it == cap
+            s["plain_iters_differ"] += it != it_plain
+            s["above_gn_tol"] += float(err) > GN_TOL
+            keys = ["max_err_capped" if it == cap else "max_err_converged"]
+            if it != it_plain:
+                keys.append("max_err_plain_iters_differ")
+            for key in keys:
+                s[key] = max(s[key], float(err))
+        return out
+
+
+def _record_solves(cfg, pts, mask):
+    """The inputs of the last solve of each composition (see
+    :class:`_SolveLog`) in an eager run of ``slam_step`` over the frames
+    on the card (a graphed frame's solves run inside its replay)."""
+    import torch
+    with _SolveLog() as rec:
         eager_steps(cfg, torch.as_tensor(pts, device="cuda"), torch.as_tensor(mask, device="cuda"))
-    finally:
-        lo.solve_correspondences = lm.solve_correspondences = real
     torch.cuda.synchronize()
-    return seen
+    return rec.last
+
+
+def phase_capped_solves(cfg, gt, pts, mask, smi):
+    """Every ``gn`` solve of the main path's frames and of the loop path's,
+    eagerly on the card (:class:`_SolveLog` with the plain solve beside
+    each): per composition, the solves that ran to their cap, by the
+    kernel's ``iters_out``, and the kernel's largest distance from the
+    plain solve over the capped solves and over the converged ones (and
+    over the solves whose plain solve ran another count; the solves
+    farther than ``GN_TOL``).  The main path's frames run as in :func:`eager_steps`; the loop path's as
+    ``SlamPipeline`` without its graphs (``_graphed`` off: the eager step
+    and attempt), its hoisted attempts included.  Returns the stats and
+    the main path's last solve of each composition (phase ``kernels``)."""
+    import torch
+    from alego_tpu_torch.models.pipeline import SlamPipeline
+
+    with _SolveLog(compare=True) as main:
+        eager_steps(cfg, torch.as_tensor(pts[:N_FRAMES], device="cuda"),
+                    torch.as_tensor(mask[:N_FRAMES], device="cuda"))
+    pipe = SlamPipeline(cfg, device="cuda")
+    pipe._graphed = False
+    with _SolveLog(compare=True) as loop:
+        timed_pass(pipe, pts, mask)
+    res = _loop_results(pipe, gt)
+    out = dict(card=smi, main_path=dict(frames=N_FRAMES, **main.stats()),
+               loop_path=dict(frames=res["frames"], loop_pairs=res["loop_pairs"],
+                              ate_m=res["ate_m"], **loop.stats()))
+    log(f"capped solves (kernel iters_out; max |kernel - plain| over the capped and the "
+        f"converged solves), {smi}: {json.dumps(out)}")
+    return out, main.last
 
 
 def _ptxas(log, kernel):
@@ -1799,9 +1891,11 @@ def main(argv=None):
     checkpoint = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "in_step.npz")
     loop_summary, loop_inputs, loop_est = phase("loop_path", phase_loop_path, cfg, gt, pts,
                                                 mask, checkpoint)
+    capped, last_solves = phase("capped_solves", phase_capped_solves, cfg, gt, pts, mask, smi)
     # the kernels are checked on the frames and the local map of the 32-frame
     # run, and at the loop shapes on the last attempt's inputs
-    rows = phase("kernels", phase_kernels, cfg, pts[:N_FRAMES], mask[:N_FRAMES], state, gn_log)
+    rows = phase("kernels", phase_kernels, cfg, pts[:N_FRAMES], mask[:N_FRAMES], state, gn_log,
+                 last_solves)
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)
     rows += phase("loop_kernels", phase_loop_kernels, loop_summary, loop_inputs)
@@ -1826,7 +1920,8 @@ def main(argv=None):
     del pts, mask          # the skewed frames take their place in host memory
     gt_s, pts_s, mask_s, imu = phase("render_skewed", render_skewed, cfg, N_CIRCUIT)
     replay = phase("deskew_path", phase_deskew_path, cfg, gt_s, pts_s, mask_s, imu)
-    summary.update(card=smi, graph_step=graph_step, loop_path=loop_summary, in_step=in_step,
+    summary.update(card=smi, graph_step=graph_step, loop_path=loop_summary,
+                   capped_solves=capped, in_step=in_step,
                    radius_path=radius, deskew_path=replay,
                    mesh_nccl1=nccl1,
                    mesh_single_map=single_map, mesh_lanes=lanes, mesh_solver=solver)

@@ -11,7 +11,9 @@ last small functions, against the JAX reference on the CPU.
   over its ``eval_correspondences`` for the frame's three compositions
   (odometry step A, step B with its column masks, mapping with
   ``eig_floor`` 1.0) and step B with a prior: params within 1e-5 (f32
-  sums in other orders; the solves converge far below ``param_tol``);
+  sums in other orders; the solves converge far below ``param_tol``), and
+  the plain solve's ``iters_out`` against the reference's iterations run
+  (its ``while_loop`` bodies), the params unchanged by asking for it;
 * the plain path against the closures the odometry and mapping solves ran
   before the batch (the rows evaluated per family and concatenated): bit
   for bit;
@@ -69,15 +71,25 @@ def _jax_corr(scene):
     return jres.Correspondences(*(jnp.asarray(scene[k]) for k in jres.Correspondences._fields))
 
 
+# the reference's iterations run per composition: its while_loop bodies,
+# one residual call each, counted by a debug callback
+REF_ITERS: dict = {}
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_solve(name):
     """The reference's solve_gn over its eval_correspondences (the column
-    masks applied by kind), compiled once per composition."""
+    masks applied by kind), compiled once per composition; each call adds
+    its iterations to ``REF_ITERS[name]``."""
     _, _, opts = _case(name)
     cols = None if "kind_cols" not in opts else jnp.asarray(opts["kind_cols"], jnp.float32)
 
+    def count():
+        REF_ITERS[name] = REF_ITERS.get(name, 0) + 1
+
     def solve(corr, p0):
         def res(p):
+            jax.debug.callback(count, ordered=True)
             r, J = jres.eval_correspondences(p, corr)
             if cols is not None:
                 k = corr.kind[:, None]
@@ -132,6 +144,26 @@ def test_solve_matches_reference(name):
     got = tgn.solve_correspondences(*args, **kw).numpy()
     assert np.abs(got - p0).max() > 1e-2                     # the solve moved
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["step_a", "step_b", "mapping", "prior"])
+def test_plain_solve_counts_its_iterations(name):
+    """``iters_out`` of the plain solve: the reference's iterations run on
+    the same batch, and the params bit for bit those of a call without it;
+    a wrong ``iters_out`` raises."""
+    scene, p0, opts = _case(name)
+    REF_ITERS[name] = 0
+    np.asarray(_jax_solve(name)(_jax_corr(scene), jnp.asarray(p0)))
+    jax.effects_barrier()
+    args, kw = gn_torch(scene, p0, opts, "cpu")
+    done = torch.full((1,), -1, dtype=torch.int32)
+    got = tgn.solve_correspondences_plain(*args, **kw, iters_out=done)
+    assert torch.equal(got, tgn.solve_correspondences_plain(*args, **kw))
+    assert 1 <= int(done) <= opts["iters"] and int(done) == REF_ITERS[name], \
+        (int(done), REF_ITERS[name])
+    for bad in (torch.zeros(1, dtype=torch.int64), torch.zeros(2, dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            tgn.solve_correspondences_plain(*args, **kw, iters_out=bad)
 
 
 def _closure_solve(name, args, kw):
