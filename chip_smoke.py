@@ -6,7 +6,7 @@ machine with an NVIDIA Hopper GPU (sm_90a) and the CUDA toolkit.
 ``python3 chip_smoke.py --nccl-mesh``, on a machine with 4 such cards, runs
 only the single map over 4 NCCL ranks, a card each, and the same 4 ranks
 sharing card 0 over host-staged gloo, each against the single loop path of
-the same call (phases 12 and 14's checks, without the kernel rows).
+the same call (phases 13 and 15's checks, without the kernel rows).
 
 Phases (each failure raises and exits non-zero; there is no CPU path; each
 phase prints its seconds):
@@ -42,8 +42,20 @@ phase prints its seconds):
    them, peak MiB, capture seconds) and one that holds each replayed
    attempt bit for bit against ``loop_closure_step`` run eagerly on a copy
    of its state, and records its candidate pair, launches, host reads and
-   seconds both ways (and writes a checkpoint for phase 7);
-5. ``capped_solves``: every ``gn`` solve of the main path's 32 frames (an
+   seconds both ways (and writes a checkpoint for phase 8);
+5. ``reference_agreement``: the JAX reference's answer on the circuit,
+   recorded on the CPU by ``tools/reference_circuit.py`` (read with
+   ``json``; no JAX here): the record's config and every frame's sha256
+   equal this run's, then the loop path's counted run (and the main
+   path's 32 frames) and one run of ``run_scanned`` in chunks of 16 (the
+   CLI's ``--chunk 16`` path) against the reference's runs of the same
+   schedules whose searches compute the port's kernels' function:
+   keyframes, loop pairs, loops and attempts equal, no overflow, the
+   largest per-frame translation gap within 5e-2 m, each ATE within
+   5e-2 m of the reference's, the main path within 2e-2 m; printed with
+   the rotation gaps, where each gap peaks and first passes 1e-3 m, and
+   the gap between the reference's own two search routes;
+6. ``capped_solves``: every ``gn`` solve of the main path's 32 frames (an
    eager loop of ``slam_step``) and of the loop path's 192 (``SlamPipeline``
    without its graphs, its attempts included), each also run by the plain
    solve on the same inputs on the card: per composition, the solves that
@@ -65,23 +77,23 @@ phase prints its seconds):
    the blocks of each solve's cluster, the bare time per iteration run and
    per iteration with every iteration forced (``param_tol = 0``), and the
    kernel's registers, stack frame and spills from ``nvcc -Xptxas -v``;
-6. a 4-frame tiny-config run on the card held against the same run on the
+7. a 4-frame tiny-config run on the card held against the same run on the
    CPU (the CPU path is what the tests hold against the JAX reference), and
    tiny-config ``loop_closure_step`` on the card against the CPU on the loop
    scene of the tests, from identity and through the bird's-eye-view rescue;
-7. ``in_step``: a few frames with ``loop_in_step=True`` (the attempt after
+8. ``in_step``: a few frames with ``loop_in_step=True`` (the attempt after
    the frame's replay, gated off), then phase 4's checkpoint resumed in
    that mode to the circuit's end: its attempts replay the loop graph, each
    held bit for bit against the eager attempt, with one host sync (the
    gate) and the loop graph's graph launches each (``torch.profiler``);
-8. the radius-mode local map (``loop_closure_enabled=False``): the first 32
+9. the radius-mode local map (``loop_closure_enabled=False``): the first 32
    frames through ``run_scanned`` in two chunks of 16, launch counts and the
    ATE held, and no host synchronisation inside a captured frame, in radius
    mode and in the main path's config (``torch.profiler``);
-9. de-skew at tiny size, card against CPU, with an IMU stream and with
+10. de-skew at tiny size, card against CPU, with an IMU stream and with
    odometry (``add_odom``), and a checkpoint saved, loaded and continued on
    the card;
-10. the bag replay as a user runs it: the whole circuit rendered with each
+11. the bag replay as a user runs it: the whole circuit rendered with each
    sweep's motion and a 40 Hz IMU stream along the same poses, written to a
    ROS bag and replayed through ``alego_tpu_torch.cli.main(["--bag", ...,
    "--use-imu", "--save-map", ...])`` (``PipelineConfig()`` with
@@ -89,21 +101,21 @@ phase prints its seconds):
    frames, IMU messages, launches, keyframes, loops and their pairs, and the
    ATE of its TUM trajectory held at the card's answer, beside the ATE of
    the same frames without de-skew through ``run_scanned``;
-11. ``mesh_nccl1``: ``DistributedSlamPipeline`` in a one-rank NCCL group
+12. ``mesh_nccl1``: ``DistributedSlamPipeline`` in a one-rank NCCL group
    over the main path's 32 frames: the launches and the ATE of the main
    path (one shard: the candidates' merge is the identity);
-12. ``mesh_single_map``: ``DistributedSlamPipeline`` on 4 ranks sharing
+13. ``mesh_single_map``: ``DistributedSlamPipeline`` on 4 ranks sharing
    the card over gloo with host-staged collectives, over the whole circuit
    with loop closure (the 5-NN on each rank's quarter of the local map, the
    Schur solve across the ranks), held against the loop path of the same
    call (its loop pairs; trajectory and ATE within 5e-2 m) and at its own
    answer; ms/frame, per-rank launches, seconds in collectives, the largest
    all-gather and the peak memory per rank;
-13. ``mesh_lanes``: ``ShardedSlamPipeline``, 2 lanes of 32 frames rendered
+14. ``mesh_lanes``: ``ShardedSlamPipeline``, 2 lanes of 32 frames rendered
    as the CLI's ``--mesh`` renders them, each lane within 1e-6 m of a
    single ``SlamPipeline`` run of its sequence;
-14. ``mesh_kernels_and_solver``: the k-NN at the 4-rank shard shapes of
-   the local map against its plain version (timed like phase 5), the
+15. ``mesh_kernels_and_solver``: the k-NN at the 4-rank shard shapes of
+   the local map against its plain version (timed like phase 6), the
    frame-parallel front end of the 4 ranks bit for bit the single front
    end's, and the Schur solve at N = 2048 with 32 loop slots on the 4
    ranks against the single-card ``optimize`` at the reference test's bar
@@ -153,9 +165,11 @@ N_CIRCUIT = 192        # the bench circuit the frames are cut from
 # the loop path over the whole circuit, held where the card puts it (runs
 # repeat it to the last digit): the loop factors (latest, closest keyframe),
 # the attempts, and the unaligned ATE (m) of the streamed poses and of the
-# corrected keyframe poses.  A sanity note, not the bound: the reference's
-# bench on the same circuit reads 0.298 and 0.475 (render seed 0) and 0.569
-# streamed at worst over five render seeds, all under 1 m.
+# corrected keyframe poses.  The reference's answer on the same schedule,
+# recorded on the CPU (REFERENCE_RECORD), has the same pairs and attempts
+# and 0.31821 / 0.38923 with its searches computing the kernels' function
+# (0.27863 / 0.32086 with its own expansion formula); phase
+# reference_agreement holds the port to it
 LOOP_PAIRS = [(87, 0), (89, 0), (92, 0), (94, 0)]
 LOOP_ATTEMPTS = 4
 # (the gn kernel's redesign moved the ATEs from 0.32340 / 0.39118, as the
@@ -206,6 +220,18 @@ MESH_TRAJ_TOL_M = MESH_ATE_TOL_M = 5e-2
 MESH_LOOP_PAIRS = [(87, 0), (89, 0), (92, 0), (94, 0)]
 MESH_ATE_M, MESH_KF_ATE_M = 0.32380, 0.39080
 N_LANE = 32           # frames of each --mesh lane
+# the JAX reference's answer on the circuit, recorded on the CPU by
+# tools/reference_circuit.py (which says how to regenerate it), and the
+# bounds that phase reference_agreement holds the port's runs to, against
+# its runs whose searches compute what the port's kernels compute
+# ("diff_squares"): the largest per-frame translation gap over the circuit
+# and each ATE's distance (MESH_TRAJ_TOL_M's bar, the same answer computed
+# in another order), and the largest gap over the main path's frames
+REFERENCE_RECORD = os.path.join(REPO, "tools", "reference_circuit.json")
+REF_TRAJ_TOL_M = REF_ATE_TOL_M = 5e-2
+REF_MAIN_TOL_M = 2e-2
+REF_PART_M = 1e-3      # the gap at which two runs are said to part
+CHUNK = 16             # the CLI's default --chunk
 # the gn kernel against its plain solve on the card (params, m and rad):
 # the kernel sums H and g in f64 in its own order, the plain solve in f32
 # by cuBLAS, so they agree to f32 rounding of the sums, carried through
@@ -751,7 +777,7 @@ def phase_main_path(cfg, gt, pts, mask):
     assert abs(ate - ATE_M) <= ATE_TOL_M, f"ATE {ate:.5f} m moved from {ATE_M} m"
     return pipe.state, launches, dict(frames=n, ms_per_frame=ms_frame, ate_m=ate,
                                       keyframes=n_kf, peak_mib=peak,
-                                      capture_s=pipe.graphs.capture_seconds)
+                                      capture_s=pipe.graphs.capture_seconds), est
 
 
 def eager_steps(cfg, pts_d, mask_d, n=None):
@@ -1179,6 +1205,144 @@ def phase_loop_kernels(summary, inputs):
     rows[0]["launches"] = summary["attempt_launches_total"]["nn1"]
     rows[1]["launches"] = summary["attempt_launches_total"]["knn"]
     return rows
+
+
+def frame_sha256(points, mask):
+    """sha256 of one frame as the reference record stores it: its points
+    as little-endian f32 bytes, then its mask as bool bytes."""
+    import hashlib
+    h = hashlib.sha256(np.ascontiguousarray(points, "<f4").tobytes())
+    h.update(np.ascontiguousarray(mask, np.bool_).tobytes())
+    return h.hexdigest()
+
+
+def config_fields(cfg):
+    """Every field of ``cfg`` as the record stores it (enums as ints,
+    tuples as lists)."""
+    import dataclasses
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        out[f.name] = list(v) if isinstance(v, tuple) else (
+            int(v) if hasattr(v, "value") else v)
+    return out
+
+
+def pose_gaps(a, b):
+    """How far two pose sequences [n, 3 or 4, 4] lie apart, frame by frame,
+    in f64: the largest translation gap (m) and its frame, the first frame
+    whose gap passes REF_PART_M (None if none), and the largest rotation gap
+    (rad, the angle of the rotation vector of R_a^T R_b) and its frame."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    dt = np.linalg.norm(a[:, :3, 3] - b[:, :3, 3], axis=1)
+    R = np.einsum("nji,njk->nik", a[:, :3, :3], b[:, :3, :3])
+    w = np.stack([R[:, 2, 1] - R[:, 1, 2], R[:, 0, 2] - R[:, 2, 0],
+                  R[:, 1, 0] - R[:, 0, 1]], 1) / 2
+    dr = np.arctan2(np.linalg.norm(w, axis=1), (np.trace(R, axis1=1, axis2=2) - 1) / 2)
+    past = np.nonzero(dt > REF_PART_M)[0]
+    return dict(max_m=float(dt.max()), at_frame=int(dt.argmax()),
+                first_past_frame=int(past[0]) if past.size else None,
+                max_rad=float(dr.max()), rad_at_frame=int(dr.argmax()))
+
+
+def _scanned_run(cfg, gt, pts, mask):
+    """The circuit through ``run_scanned`` in chunks of CHUNK on the frame
+    clock (the CLI's ``--chunk 16`` streaming path; one hoisted attempt per
+    chunk), counted (counts set to 0 just before) and timed, with one host
+    read per chunk: its results, with the frame step's launches and each
+    attempt's held, and its poses."""
+    import torch
+    from alego_tpu_torch import kernels
+    from alego_tpu_torch.models.pipeline import SlamPipeline
+
+    n = pts.shape[0]
+    pipe = SlamPipeline(cfg, device="cuda")
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.clear()
+    t0 = time.time()
+    est = np.concatenate([pipe.run_scanned(pts[i:i + CHUNK], mask[i:i + CHUNK])
+                          for i in range(0, n, CHUNK)])
+    total_s = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    res = _loop_results(pipe, gt)
+    step = step_launches(cfg, n, -(-n // cfg.map_frame_decimation))
+    per_attempt = attempt_launches(cfg)
+    assert launches["ccl"] == n and launches["gn"] == step["gn"], launches
+    assert {k: launches[k] - step[k] for k in per_attempt} == \
+        {k: v * res["attempts"] for k, v in per_attempt.items()}, \
+        f"launches {launches}: not the step's and {res['attempts']} x {per_attempt}"
+    return dict(res, ms_per_frame=total_s / n * 1e3, launches=launches), est
+
+
+def phase_reference_agreement(cfg, gt, pts, mask, smi, loop_summary, loop_est, main_est):
+    """The port's answer on the circuit against the JAX reference's, read
+    from REFERENCE_RECORD (``json`` only; the record says how it was made).
+    First the same inputs: the record's config is ``cfg`` and every frame
+    of this render hashes to the record's (else the comparison is void).
+    Then two schedules, each against the reference's run whose searches
+    compute what the port's kernels compute (``diff_squares``): ``process``
+    is the loop path's counted run (its first N_FRAMES frames also the main
+    path's run), ``scanned`` one run of ``run_scanned`` in chunks of CHUNK
+    (:func:`_scanned_run`).  Held: keyframes, loop pairs, loops, attempts
+    equal, no overflow on either side; the largest per-frame translation
+    gap within REF_TRAJ_TOL_M, each ATE within REF_ATE_TOL_M of the
+    reference's, the main path's gap within REF_MAIN_TOL_M.  Printed
+    beside them: the rotation gaps, the frame where each gap peaks and
+    the first where it passes REF_PART_M, and the gap between the
+    reference's own two search routes (``diff_squares`` and ``as_is``) over
+    the same frames.  Every miss is listed, then the phase fails."""
+    with open(REFERENCE_RECORD) as f:
+        rec = json.load(f)
+    n = pts.shape[0]
+    assert rec["config"] == config_fields(cfg), "the record's config is not this run's"
+    assert len(rec["frame_sha256"]) == n, f"the record holds {len(rec['frame_sha256'])} frames"
+    bad = [k for k in range(n) if frame_sha256(pts[k], mask[k]) != rec["frame_sha256"][k]]
+    assert not bad, f"frames {bad[:8]} ({len(bad)} in all) differ from the record's render: " \
+        "no comparison"
+    scanned, scanned_est = _scanned_run(cfg, gt, pts, mask)
+
+    keys = ("keyframes", "loops", "loop_pairs", "attempts", "overflow", "loop_overflow",
+            "ate_m", "kf_ate_m")
+    out, misses = dict(card=smi, record_jax=rec["jax_version"], frames=n), []
+    for schedule, res, est in (("process", loop_summary, loop_est),
+                               ("scanned", scanned, scanned_est)):
+        ref, as_is = rec["runs"][f"{schedule}/diff_squares"], rec["runs"][f"{schedule}/as_is"]
+        port = {k: [list(p) for p in res[k]] if k == "loop_pairs" else res[k] for k in keys}
+        ref_poses = np.asarray(ref["poses"], np.float32)
+        row = dict(port=port, reference={k: ref[k] for k in keys},
+                   reference_as_is={k: as_is[k] for k in keys},
+                   gap=pose_gaps(est, ref_poses),
+                   reference_routes_gap=pose_gaps(np.asarray(as_is["poses"], np.float32),
+                                                  ref_poses))
+        if schedule == "scanned":
+            row.update(ms_per_frame=res["ms_per_frame"], launches=res["launches"])
+        for k in ("keyframes", "loops", "loop_pairs", "attempts"):
+            if port[k] != ref[k]:
+                misses.append(f"{schedule}: {k} {port[k]} != the reference's {ref[k]}")
+        for k in ("overflow", "loop_overflow"):
+            if port[k] or ref[k]:
+                misses.append(f"{schedule}: {k} {port[k]} / {ref[k]} (port / reference)")
+        if row["gap"]["max_m"] > REF_TRAJ_TOL_M:
+            misses.append(f"{schedule}: poses {row['gap']['max_m']:.4f} m apart at frame "
+                          f"{row['gap']['at_frame']} (bound {REF_TRAJ_TOL_M})")
+        for k in ("ate_m", "kf_ate_m"):
+            if abs(port[k] - ref[k]) > REF_ATE_TOL_M:
+                misses.append(f"{schedule}: {k} {port[k]:.5f} against the reference's "
+                              f"{ref[k]:.5f} (bound {REF_ATE_TOL_M})")
+        if schedule == "process":
+            row["main_path_gap"] = pose_gaps(main_est, ref_poses[:main_est.shape[0]])
+            if row["main_path_gap"]["max_m"] > REF_MAIN_TOL_M:
+                misses.append(f"main path: poses {row['main_path_gap']['max_m']:.4f} m apart "
+                              f"(bound {REF_MAIN_TOL_M})")
+        out[schedule] = row
+        log(f"reference_agreement {schedule} ({smi}): port {json.dumps(port)}; reference "
+            f"{json.dumps(row['reference'])}; gap {json.dumps(row['gap'])}; the reference's "
+            f"two routes {json.dumps(row['reference_routes_gap'])}"
+            + (f"; main path gap {json.dumps(row['main_path_gap'])}"
+               if schedule == "process" else ""))
+    log(f"reference_agreement: {json.dumps(out)}")
+    assert not misses, "the port misses the reference: " + "; ".join(misses)
+    return out
 
 
 def _loop_scene(cfg, device):
@@ -1885,12 +2049,14 @@ def main(argv=None):
     cfg = PipelineConfig().replace(loop_in_step=False)
     gt, pts, mask = phase("render", render, cfg, N_CIRCUIT)
 
-    state, launches, summary = phase("main_path", phase_main_path, cfg, gt[:N_FRAMES],
-                                     pts[:N_FRAMES], mask[:N_FRAMES])
+    state, launches, summary, main_est = phase("main_path", phase_main_path, cfg,
+                                               gt[:N_FRAMES], pts[:N_FRAMES], mask[:N_FRAMES])
     graph_step = phase("graph_step", phase_graph_step, cfg, pts[:N_FRAMES], mask[:N_FRAMES])
     checkpoint = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "in_step.npz")
     loop_summary, loop_inputs, loop_est = phase("loop_path", phase_loop_path, cfg, gt, pts,
                                                 mask, checkpoint)
+    reference = phase("reference_agreement", phase_reference_agreement, cfg, gt, pts, mask,
+                      smi, loop_summary, loop_est, main_est)
     capped, last_solves = phase("capped_solves", phase_capped_solves, cfg, gt, pts, mask, smi)
     # the kernels are checked on the frames and the local map of the 32-frame
     # run, and at the loop shapes on the last attempt's inputs
@@ -1921,7 +2087,7 @@ def main(argv=None):
     gt_s, pts_s, mask_s, imu = phase("render_skewed", render_skewed, cfg, N_CIRCUIT)
     replay = phase("deskew_path", phase_deskew_path, cfg, gt_s, pts_s, mask_s, imu)
     summary.update(card=smi, graph_step=graph_step, loop_path=loop_summary,
-                   capped_solves=capped, in_step=in_step,
+                   reference_agreement=reference, capped_solves=capped, in_step=in_step,
                    radius_path=radius, deskew_path=replay,
                    mesh_nccl1=nccl1,
                    mesh_single_map=single_map, mesh_lanes=lanes, mesh_solver=solver)
